@@ -1,7 +1,7 @@
 """Inverse rendering: recover a texture, a roughness, and a light's radiance
 from a rendered target image (VERDICT round-2 item 7).
 
-The reference has no differentiable path at all; this is the TPU framework's
+The reference has no differentiable path at all; this is the framework's
 flagship capability. Setup: a quad with an UNKNOWN 8x8 albedo texture and a
 GGX sphere with UNKNOWN roughness, lit by a sphere light of UNKNOWN radiance.
 The target is rendered with the true values; Adam recovers all three jointly

@@ -7,8 +7,8 @@ and an anisotropic GGX icosahedron.
 
 The reference's BumpyNormalMap evaluates gradient noise per shading point
 (wurblpt-stagelights.cpp:59-85); here the height field is baked once into a
-normal-map image on the host (finite differences -> tangent-space normals) —
-on TPU an image gather beats re-evaluating noise four times per hit.
+normal-map image on the host (finite differences -> tangent-space normals),
+so a hit pays one image gather instead of four noise evaluations.
 """
 
 import numpy as np

@@ -4,7 +4,7 @@
  * exported by tools/make_parity_mesh.py (102k tris, Lambertian terrain and
  * buildings, specular spheres -> ModPhong via the reference's MTL heuristics,
  * import.hpp:288-387) lit by the same procedural sky as an equirect envmap
- * with importance sampling (32x32 grid, matching the TPU scene).
+ * with importance sampling (32x32 grid, matching the JAX scene).
  *
  * Purpose: a measured reference-CPU paths/s for a mesh-scale BVH scene so
  * BASELINE.json's mesh row has a denominator (VERDICT round-3 Missing #1).

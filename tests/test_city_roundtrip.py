@@ -42,3 +42,66 @@ def test_city_bounds_match_after_roundtrip():
         r = np.asarray(arr_r)
         np.testing.assert_allclose(d.min(0), r.min(0), atol=1e-3)
         np.testing.assert_allclose(d.max(0), r.max(0), atol=1e-3)
+
+
+_BLOCKED_BUILD = """
+import sys
+sys.modules["PIL"] = None          # any `import PIL...` now raises ImportError
+try:
+    import PIL  # noqa: F401
+    raise SystemExit("PIL was not blocked")
+except ImportError:
+    pass
+import numpy as np
+from jax import tree_util
+from wurblpt_tpu.utils import scenes
+s = scenes.city_night(terrain_res=60, n_buildings=24, n_windows=66,
+                      sphere_slices=8).build(use_bvh=False)
+leaves = tree_util.tree_leaves_with_path((s.materials, s.textures, s.tris))
+np.savez(sys.argv[1], **{tree_util.keystr(k): np.asarray(v) for k, v in leaves})
+"""
+
+
+def test_city_scene_is_the_same_without_pil(tmp_path):
+    """The bench's city scene, OBJ round trip included, must not depend on
+    whether PIL is importable: build it in a process where PIL is blocked and
+    compare the flattened material, texture and triangle arrays."""
+    import os
+    import subprocess
+    import sys
+
+    from jax import tree_util
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "blocked.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo)
+    subprocess.run([sys.executable, "-c", _BLOCKED_BUILD, out], env=env,
+                   cwd=repo, check=True, timeout=600)
+    blocked = np.load(out)
+    s = _small().build(use_bvh=False)
+    leaves = tree_util.tree_leaves_with_path((s.materials, s.textures, s.tris))
+    assert sorted(blocked.files) == sorted(tree_util.keystr(k) for k, _ in leaves)
+    for k, v in leaves:
+        np.testing.assert_array_equal(blocked[tree_util.keystr(k)],
+                                      np.asarray(v), err_msg=tree_util.keystr(k))
+
+
+def test_textured_export_without_pil_raises(tmp_path, monkeypatch):
+    """A texture that needs writing must not be dropped silently when PIL is
+    missing: the export raises instead."""
+    import sys
+
+    import pytest
+
+    from wurblpt_tpu.io.obj import export_scene_to_obj
+    from wurblpt_tpu.scene import builder as B
+    from wurblpt_tpu.scene.generator import generate_quad
+
+    sc = B.Scene()
+    sc.take_mesh_instance(B.MeshInstance(
+        mesh=generate_quad(1.0, 1.0),
+        material=B.Lambertian(albedo=B.ImageTexture(
+            image=np.full((4, 4, 3), 0.5, np.float32)))))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError):
+        export_scene_to_obj(sc, str(tmp_path / "t.obj"))

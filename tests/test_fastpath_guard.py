@@ -1,9 +1,9 @@
-"""Guard for the jax-0.9.0 dispatch-fastpath fault (PROFILE.md section 3).
+"""Guard for the jax-0.9.0 dispatch-fastpath fault (tests/conftest.py).
 
 On jax 0.9.0 the suite neutralizes the fastpath in conftest, so the fault
 cannot bite and this test is skipped. On any OTHER jax version the conftest
-no longer applies the patch (advisor round-4: a hard import error made the
-suite unrunnable everywhere else) — instead this test executes the
+no longer applies the patch (a hard import error would make the suite
+unrunnable everywhere else) — instead this test executes the
 standalone reproducer in a clean subprocess WITHOUT the patch and fails if
 the cross-program re-dispatch fault still exists, pointing the upgrader at
 the workaround to extend or delete.

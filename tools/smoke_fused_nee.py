@@ -40,10 +40,10 @@ def run(name, scene_b, cam, cfg, w, h, use_bvh=False, renderer="wave"):
 def main():
     w = h = 32
     pose, vfov = scenes.cornell_ref_camera()
-    run("cornell/mxu", scenes.cornell_box_ref(),
+    run("cornell/matmul", scenes.cornell_box_ref(),
         make_camera(transformation=pose, vfov_deg=vfov, width=w, height=h),
         CameraConfig(), w, h)
-    run("envmap_cube/mxu", scenes.envmap_spheres(cube=True),
+    run("envmap_cube/matmul", scenes.envmap_spheres(cube=True),
         make_camera(transformation=from_lookat((0.0, 0.6, 4.0), (0, 0, 0)),
                     vfov_deg=40.0, width=w, height=h),
         CameraConfig(), w, h)

@@ -1,13 +1,13 @@
-"""wurblpt_tpu: a TPU-native differentiable path tracer.
+"""wurblpt_tpu: a differentiable path tracer in JAX.
 
-Brand-new JAX/XLA/Pallas framework with the capabilities of the WurblPT
+A JAX/XLA framework with the capabilities of the WurblPT
 reference renderer (see SURVEY.md): wavefront Monte-Carlo path integration with
 NEE/MIS, BVH-accelerated triangle/sphere/medium intersection,
 Lambertian/GGX/glass/ModPhong/RGL materials, parameterization-independent
 environment-map importance sampling, OpenCV camera intrinsics + lens
 distortion, 360/180 surround and stereo rendering, light-in-flight and AMCW
 Time-of-Flight sensor simulation, ground-truth AOVs, animation, and OBJ/MTL
-import/export — differentiable end-to-end and sharded over TPU meshes.
+import/export — differentiable end-to-end and sharded over device meshes.
 """
 
 from .core import color, constants, fresnel, onb, rng, sampler, transform, vecmath  # noqa: F401

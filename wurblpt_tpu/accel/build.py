@@ -2,10 +2,10 @@
 
 The reference builds a full-sweep SAH tree and flattens it to 32-byte nodes
 traversed with an explicit 128-deep stack (``libwurblpt/bvh.hpp:93-246,
-277-311``). The TPU design replaces the stack with *threading*: nodes are laid
-out in DFS pre-order, advancing to ``node + 1`` on an AABB hit and to
+277-311``). The batched design replaces the stack with *threading*: nodes are
+laid out in DFS pre-order, advancing to ``node + 1`` on an AABB hit and to
 ``miss_next[node]`` otherwise, so a whole ray batch walks the tree in lockstep
-with no per-ray stack (SURVEY.md section 1 "TPU mapping").
+with no per-ray stack (SURVEY.md section 1).
 
 The builder itself is host-side native C++ (``native/src/bvh_builder.cpp``,
 binned SAH) with a numpy fallback; both produce identical array layouts.
@@ -25,26 +25,15 @@ import jax.numpy as jnp
 from ..scene.ir import BVHArrays
 
 LEAF_SIZE = 4          # small scenes: few prims per leaf keeps tile work low
-LEAF_SIZE_LARGE = 64   # big scenes; TPU closest-cast sweep at 100k tris /
-#                        76800 rays WITH octant front-to-back + packed leaves:
-#                        leaf 8: 756 ms, 16: 558, 32: 407, 64: 355 (fewer
-#                        leaf VISITS once ordering prunes, so wide tiles win;
-#                        without octant ordering 64 was the worst at 4.46 s)
-BVH_WIDTH = 32         # wide-node branching factor (children per wide node).
-#                        TPU gathers pay per ROW DESCRIPTOR (~17 ns/row,
-#                        PROFILE.md section 2), so packing all W children's
-#                        AABBs + links into ONE gathered row and slab-testing
-#                        them vectorized cuts the dominant cost — lockstep
-#                        gather count — by ~W/2 vs the binary threaded walk
-#                        (one row gather tests W boxes instead of two gathers
-#                        testing one).
-#                        Round-5 frame-gated width sweep on bvh_100k (102k
-#                        tris, radiance bit-identical 0.32989 throughout):
-#                        W=8: 499 ms, W=16: 465, W=32: 373, W=64: 568 — the
-#                        wider row is descriptor-free until the one-hot
-#                        stack push's O(N*D*W) traffic catches up at W=64.
-#                        Leaf re-sweep at W=32: leaf 32: 372.6, 64: 373,
-#                        128: 419 (leaf 64 kept).
+LEAF_SIZE_LARGE = 64   # big scenes (wide tiles pay off once octant
+#                        front-to-back ordering prunes leaf visits)
+BVH_WIDTH = 32         # wide-node branching factor (children per wide node):
+#                        all W children's AABBs + links in ONE gathered row,
+#                        slab-tested vectorized, so one row gather tests W
+#                        boxes instead of two gathers testing one.
+#                        Both values were tuned on the previous accelerator,
+#                        whose gathers were priced per row; they are starting
+#                        points, not yet measured on the H100 (ROADMAP S2).
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +225,9 @@ def _collapse_wide(built, leaf_size: int, width: int):
     row gather per traversal step.
 
     The reference's stack traversal touches one binary node per step
-    (``bvh.hpp:277-311``); on TPU each touch is a row gather priced per
-    descriptor, so a W-wide node — all children's AABBs and links in one
-    contiguous row — tests W boxes for the price of one gather. Collapse
+    (``bvh.hpp:277-311``); in a lockstep batch each touch is a row gather,
+    so a W-wide node — all children's AABBs and links in one contiguous
+    row — tests W boxes for the price of one gather. Collapse
     policy (Wald-style): starting from a binary node's two children, keep
     replacing the largest-surface-area inner member with its own children
     until W members exist. Each member becomes either a leaf slot or a new
@@ -309,15 +298,15 @@ def _collapse_wide(built, leaf_size: int, width: int):
             rows[w, j, 3:6] = node_max[m]
             links[w, j] = (-2 - leaf_row[m]) if is_leaf[m] else wid_of[m]
     # Exact float VALUES, not bitcast bit patterns: small ids bitcast to f32
-    # denormals, which this toolchain flushes to zero in some XLA op
-    # sequences (PROFILE.md 1c rule 2). All links are well inside +-2^24 so
-    # the float round-trips exactly (asserted).
+    # denormals, which XLA backends may flush to zero in some op sequences.
+    # All links are well inside +-2^24 so the float round-trips exactly
+    # (asserted).
     assert np.abs(links).max(initial=0) < (1 << 24)
     rows[..., 6] = links.astype(np.float32)
     # EXACT worst-case stack need, not the max_depth * (W-1) bound: a node
     # pushes (cnt - 1) entries before descending, so the true maximum is the
     # deepest root-to-node path sum of (cnt - 1). The stack ops are O(N * D)
-    # HBM traffic per step (traverse._stack_push_sorted), so D is a direct
+    # memory traffic per step (traverse._stack_push_sorted), so D is a direct
     # cost knob — the exact bound is typically several times tighter at
     # large W (DP below, bottom-up over the wide DAG).
     n_children = np.array([len(m) for m in members_of], np.int64)
@@ -342,9 +331,8 @@ def pack_bvh(built, leaf_size: int, tris_np=None, spheres_np=None,
     (one f32 + one i32 gather per traversal step; 2-D leaf tile).
 
     With `tris_np`/`spheres_np`, leaf geometry is REPLICATED into contiguous
-    [L, K, 9] rows (leaf_geom) so each leaf visit is one row gather per lane —
-    TPU gathers pay per descriptor, so K per-prim gathers of 12 B rows cost
-    ~K times more than one 36*K B row. tris_np may be (p0, e1, e2) or
+    [L, K, 9] rows (leaf_geom) so each leaf visit is one contiguous row
+    gather per lane instead of K per-prim gathers. tris_np may be (p0, e1, e2) or
     (p0, e1, e2, v1, v2); absolute v1/v2 preserve watertightness.
     """
     node_min, node_max, prim_start, prim_count, miss_next, prim_order = built
@@ -486,9 +474,8 @@ def build_bvh_arrays(tris_np, spheres_np, leaf_size: int = None,
     used for animated prims whose world boxes are swept over the render
     interval (reference Scene::updateBVH(t0, t1), scene.hpp:151-169).
 
-    leaf_size: leaf tile width K (None = scale with the scene). On TPU the
-    leaf-packed two-phase traversal (accel/traverse) makes moderate tiles
-    optimal — see LEAF_SIZE_LARGE sweep numbers.
+    leaf_size: leaf tile width K (None = scale with the scene; see
+    LEAF_SIZE_LARGE).
     """
     amin, amax, cent = prim_aabbs(tris_np[:3], spheres_np)
     if aabb_override is not None:

@@ -1,27 +1,28 @@
 """Wavefront BVH traversal over the whole ray batch.
 
 The reference traverses its flattened SAH tree with an explicit per-ray
-128-deep stack (``libwurblpt/bvh.hpp:277-311``). Two TPU traversals live here:
+128-deep stack (``libwurblpt/bvh.hpp:277-311``). Two lockstep traversals live
+here, both plain `lax` that XLA compiles for the device:
 
 **Wide path (default, round 4)** — ``_wide_closest_hit`` / ``_wide_any_hit``:
 the binary SAH tree is collapsed into W-ary nodes whose children's AABBs and
 links occupy ONE gathered row (build._collapse_wide), so each lockstep step
-pays one row descriptor and slab-tests W children vectorized; an exact
+pays one row gather and slab-tests W children vectorized; an exact
 per-lane short stack (single-pass one-hot push of the sorted-children prefix,
 ``_stack_push_sorted``) gives true front-to-back order with best-t pruning.
-Two further measured facts shape it:
+Two further facts, measured on the previous accelerator, shape it:
 
 * the lockstep tail is the enemy: the mean ray finishes in ~6 steps but the
   max runs ~10x longer, and every step pays one row gather per LANE whether
   live or idle — so live lanes are periodically COMPACTED into 4x smaller
   batches (``_stage_sizes``, nonzero + gather + scatter-back), and the walk
   yields to leaf work early once few lanes still walk (walker-count exit);
-* sequential one-hot stack pushes are HBM-bound (each rewrites the whole
-  [N, D] stack); fusing all pushes into one masked pass cut the step cost
-  from 1.36 to 0.76 ms at 76800 lanes.
+* sequential one-hot stack pushes are memory-bound (each rewrites the whole
+  [N, D] stack); all pushes are fused into one masked pass.
 
-Net effect (terrain_city, 102k tris, 76800 camera rays, TPU v5lite):
-closest cast 418 -> 81 ms, any-hit 297 -> 67 ms vs the round-3 binary walk.
+None of its constants (W, leaf size, the compaction schedule, the walk-exit
+divisor) has been measured on the H100 yet; ROADMAP S2 re-tunes them, and
+a one-thread-per-ray traversal kernel is S2's alternative to this walk.
 
 **Binary threaded path (fallback)** — retained for BVHs built with
 ``WURBLPT_BVH_WIDE=0`` and raw-array scenes without packed leaf geometry:
@@ -288,7 +289,7 @@ def _walk_to_leaf(bvh, o, inv_d, t_min, node, tmax_eff, oct_base=None):
             leaf_row, hit_link, miss_link = ln[:, 0], ln[:, 1], ln[:, 2]
         else:
             # plain pre-order threading (any-hit: no best_t to prune with, and
-            # the smaller table gathers faster — measured 193 vs 318 ms/cast)
+            # the smaller table gathers faster)
             ni = bvh.node_i[ns]
             leaf_row, miss_link = ni[:, 0], ni[:, 1]
             hit_link = ns + 1
@@ -312,13 +313,11 @@ def _walk_to_leaf(bvh, o, inv_d, t_min, node, tmax_eff, oct_base=None):
 # ---------------------------------------------------------------------------
 #
 # The binary threaded walk pays TWO row gathers per node VISIT to test ONE
-# box; with gathers priced per row descriptor (~17 ns/row, PROFILE.md
-# section 2) that is the whole cost. A W-wide node packs all W children's
-# AABBs + links into one [W*7] f32 row (build._collapse_wide): one gather,
-# W vectorized slab tests, exact per-lane front-to-back ordering via a short
-# stack. The stack lives in loop state as [N, D] arrays manipulated with
-# one-hot masks — pure VPU work, no per-lane dynamic gathers (which Mosaic
-# rejects and XLA prices per row).
+# box. A W-wide node packs all W children's AABBs + links into one [W*7] f32
+# row (build._collapse_wide): one gather, W vectorized slab tests, exact
+# per-lane front-to-back ordering via a short stack. The stack lives in loop
+# state as [N, D] arrays manipulated with one-hot masks — elementwise work,
+# no per-lane dynamic gathers.
 
 def _wide_decode(bvh):
     """(wide rows [M, W, 7], W, stack depth D)."""
@@ -337,9 +336,8 @@ def _wide_children(bvh, node, o, inv_d, t_min, t_max_eff, W):
     bmin = row[..., 0:3]
     bmax = row[..., 3:6]
     # Links are stored as exact float VALUES (|v| < 2^24), not bitcast int
-    # patterns: small positive ids bitcast to f32 denormals, and this
-    # toolchain flushes denormals to zero in some XLA op sequences
-    # (PROFILE.md 1c rule 2; advisor round-4 finding on build.py:304).
+    # patterns: small positive ids bitcast to f32 denormals, which XLA
+    # backends may flush to zero in some op sequences.
     links = row[..., 6].astype(jnp.int32)
     t0 = (bmin - o[:, None, :]) * inv_d[:, None, :]
     t1 = (bmax - o[:, None, :]) * inv_d[:, None, :]
@@ -355,10 +353,10 @@ def _stack_push_sorted(stack_l, stack_t, sp, links, tnear, live):
     """Push children 1..cnt-1 of the SORTED candidate list in far-to-near
     order (nearest ends on top) — in ONE pass over the stack.
 
-    Sequential one-hot pushes materialize the whole [N, D] stack in HBM once
-    per push; W-1 of them made the stack ops ~70% of the step cost (measured
-    0.94 of 1.36 ms/step at 76800 lanes). Writing all pushed slots in a
-    single masked update pays the stack traffic once. `tnear` ascending with
+    Sequential one-hot pushes materialize the whole [N, D] stack in device
+    memory once per push; W-1 of them made the stack ops most of the step
+    cost on the previous accelerator. Writing all pushed slots in a single
+    masked update pays the stack traffic once. `tnear` ascending with
     BIG for invalid, so valid candidates are the prefix [0, cnt_all); slot
     p in [sp, sp+cnt_all-1) receives child j = sp + cnt_all - 1 - p.
     """
@@ -444,11 +442,11 @@ def _wide_walk_to_leaf(bvh, o, inv_d, t_min, t_max, node, sp, stack_l,
 
     def nbody(state):
         # Unrolled steps per while iteration: at compacted (small) widths the
-        # loop's fixed per-iteration launch/sync (~0.45 ms regardless of
-        # work, PROFILE.md 2a) dominates; settled lanes mask out of later
-        # steps. Kept at 1 for the full-width stages — a global 2x unroll
-        # regressed the whole frame 20x (code-size/scheduling pathology in
-        # the nested wavefront loop).
+        # loop's fixed per-iteration launch/sync cost dominates; settled
+        # lanes mask out of later steps. Kept at 1 for the full-width stages:
+        # on the previous accelerator a global 2x unroll regressed the whole
+        # frame many times over (code-size/scheduling pathology in the
+        # nested wavefront loop).
         for _ in range(unroll):
             state = step(state)
         return state
@@ -458,10 +456,10 @@ def _wide_walk_to_leaf(bvh, o, inv_d, t_min, t_max, node, sp, stack_l,
 
 def _walk_stop_div() -> int:
     """Walk-exit divisor: the wide walk yields to leaf work once walkers
-    <= m // div. Frame-gated sweep on bvh_100k at W=32 (radiance
-    bit-identical 0.34585): div=2: 834 ms, 4: 372, 8: 361, 16: 379,
-    32: 367 — 8 is the pick (yielding too eagerly at div=2 doubles the
-    outer leaf/pop rounds; too lazily idles parked lanes in the walk)."""
+    <= m // div. 8 was the best of a frame-gated sweep (2..32) on the
+    previous accelerator: yielding too eagerly doubles the outer leaf/pop
+    rounds, too lazily idles parked lanes in the walk. Not yet measured on
+    the H100 (ROADMAP S2)."""
     import os
 
     return int(os.environ.get("WURBLPT_BVH_STOP_DIV", "8"))
@@ -470,11 +468,13 @@ def _walk_stop_div() -> int:
 def _stage_sizes(n: int):
     """Compaction schedule: full width, then /4 steps down to ~8k lanes.
 
-    Measured live-lane histogram (terrain_city, 76800 camera rays): the
-    average ray finishes in ~6 lockstep steps but the lockstep tail runs to
-    ~95 — by step 7 under 11% of lanes are live, yet every step still pays
-    one row-descriptor per LANE (PROFILE.md section 2). Re-packing survivors
-    into a 4x smaller batch caps that waste at a bounded geometric overhead.
+    Live-lane histogram (terrain_city, 76800 camera rays): the average ray
+    finishes in ~6 lockstep steps but the lockstep tail runs to ~95 — by
+    step 7 under 11% of lanes are live, yet every step still pays one row
+    gather per LANE. Re-packing survivors into a 4x smaller batch caps that
+    waste at a bounded geometric overhead. The /4 factor and the 256-lane
+    floor are starting points from the previous accelerator, not yet
+    measured on the H100 (ROADMAP S2).
     """
     import os
 
@@ -488,16 +488,13 @@ def _stage_sizes(n: int):
 def _stage_sizes_fused(n: int):
     """Fused-cast schedule (== the standard one).
 
-    MEASURED NEGATIVE RESULTS on the full bvh_100k frame (round 5, radiance
-    bit-identical 0.32989 throughout): fusing the bounce's closest cast with
-    its deferred env-NEE any-hit into one traversal ran 581 ms vs 519 ms for
-    two separate casts under the /4 schedule, and 620 ms with an extra /2
-    entry stage to shed entry-dead lanes (the extra compaction boundary cost
-    more than the idle lanes it removed). The shared-lockstep saving never
-    materializes on the BVH path — the integrator therefore fuses casts only
-    on the MXU path, where the fusion is one larger matmul (integrator
-    _fused_mode). Kept as a separate function so future schedule experiments
-    stay frame-gated in one place.
+    Negative results on the full bvh_100k frame, on the previous
+    accelerator (radiance bit-identical): fusing the bounce's closest cast
+    with its deferred env-NEE any-hit into one traversal was slower than two
+    separate casts under the /4 schedule, and slower still with an extra /2
+    entry stage to shed entry-dead lanes. The integrator therefore fuses
+    casts only on the matmul path (integrator._fused_mode). Not measured on
+    the H100 (ROADMAP D1).
     """
     return _stage_sizes(n)
 
@@ -671,9 +668,8 @@ def _wide_fused_hit(scene: SceneArrays, o, d, t_min, t_max, anyhit,
     best-hit state exactly like `_wide_closest_hit`. Both kinds share the
     walk loop, the compaction stages, and the straggler tail, so a bounce's
     closest cast and its (deferred) NEE shadow casts pay the lockstep
-    per-iteration fixed costs ONCE instead of once per cast — on this
-    platform those fixed costs, not FLOPs, dominate the tail (PROFILE.md
-    2a). Lanes with t_max <= t_min (inactive) die on the root step and are
+    per-iteration fixed costs ONCE instead of once per cast. Lanes with
+    t_max <= t_min (inactive) die on the root step and are
     compacted away at the first stage boundary.
 
     Returns (t, prim, u, v, occluded); closest lanes read the first four,
@@ -807,8 +803,8 @@ def bvh_closest_hit(scene: SceneArrays, o, d, t_min, t_max, obj_rays=None):
 
     Two-phase lockstep: an inner while_loop walks all lanes to their next hit
     leaf using only the packed node tables; an outer while_loop then pays one
-    wide primitive-tile gather per LEAF VISIT. TPU gathers, not FLOPs, are
-    the cost model here.
+    wide primitive-tile gather per LEAF VISIT, so leaf tiles are paid per
+    visit, not per step.
     """
     bvh = scene.bvh
     n = o.shape[0]
@@ -872,8 +868,8 @@ def bvh_closest_hit(scene: SceneArrays, o, d, t_min, t_max, obj_rays=None):
 def bvh_any_hit(scene: SceneArrays, o, d, t_min, t_max, obj_rays=None):
     """Occlusion walk: a lane retires the moment ANY hit lands in
     (t_min, t_max) — no best-t refinement, early exit per lane. Same
-    two-phase walk-to-leaf structure as bvh_closest_hit (TPU gathers are the
-    cost, so leaf tiles are paid per leaf VISIT, not per step)."""
+    two-phase walk-to-leaf structure as bvh_closest_hit (leaf tiles are paid
+    per leaf VISIT, not per step)."""
     bvh = scene.bvh
     n = o.shape[0]
     if bvh.wide_nodes is not None and bvh.leaf_geom is not None and (

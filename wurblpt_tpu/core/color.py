@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import jax.numpy as jnp
 
+from .vecmath import matvec
+
 # Rec.709 / sRGB primaries, D65 white (row-major 3x3). HOST arrays, not jnp:
 # a module-level device array (a) becomes a hoisted const_arg that the jax
 # 0.9.0 dispatch fastpath can drop (tests/conftest.py), and (b) initializes
@@ -37,11 +39,11 @@ _RGB_TO_XYZ = np.array(
 
 
 def xyz_to_rgb(xyz):
-    return jnp.einsum("ij,...j->...i", _XYZ_TO_RGB, xyz)
+    return matvec(_XYZ_TO_RGB, xyz)
 
 
 def rgb_to_xyz(rgb):
-    return jnp.einsum("ij,...j->...i", _RGB_TO_XYZ, rgb)
+    return matvec(_RGB_TO_XYZ, rgb)
 
 
 def _gauss(x, alpha, mu, s1, s2):

@@ -2,13 +2,13 @@
 
 The reference uses a sequential per-pixel xoshiro128+ stream seeded by
 splitmix64(pixelIndex + 42) (``libwurblpt/prng.hpp:47-101``). A sequential stream is
-the wrong design for a TPU wavefront renderer: lanes would need mutable per-ray
+the wrong design for a wavefront renderer: lanes would need mutable per-ray
 state and results would depend on evaluation order and sharding.
 
 Instead every random draw is a pure function of a *counter tuple*
 ``(pixel, sample, depth, salt)`` hashed with PCG4D (Jarzynski & Olano, JCGT 2020,
 "Hash Functions for GPU Rendering") — the standard counter-based generator for
-GPU/TPU wavefront path tracers. Properties we rely on:
+GPU wavefront path tracers. Properties we rely on:
 
 * reproducible regardless of chip count, sharding, or evaluation order
   (required for the 1-chip vs N-host parity tests, SURVEY.md section 7);
@@ -99,8 +99,7 @@ class Salt:
     BSDF_CHANNEL = 0x12  # glass dispersion channel pick (material_glass.hpp:97-106)
     # One fused draw whose four PCG4D output words serve the per-bounce
     # SCALAR decisions (lobe pick, dispersion channel, Russian roulette) —
-    # the words of one hash are independent, and each hash4 costs ~1.25 ms
-    # at 262k lanes, ~45% of the Cornell bounce body before fusing.
+    # the words of one hash are independent, so one hash4 replaces three.
     BSDF_AUX = 0x13
     NEE_PICK = 0x20
     NEE_SAMPLE = 0x21

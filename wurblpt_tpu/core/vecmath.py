@@ -1,7 +1,7 @@
 """Small-vector helpers over trailing-dimension arrays.
 
 The reference carries a 2k-line GLSL-style math library (``libwurblpt/gvm.hpp``).
-On TPU, small vectors are just arrays with a trailing dim of 2/3/4 and jnp does the
+Here small vectors are just arrays with a trailing dim of 2/3/4 and jnp does the
 rest; this module only adds the handful of geometric helpers the renderer needs.
 All functions broadcast over leading (batch) dimensions.
 """
@@ -35,6 +35,15 @@ def normalize(a, eps: float = 1e-20):
 
 def cross(a, b):
     return jnp.cross(a, b)
+
+
+def matvec(m, v):
+    """m [..., 3, 3] @ v [..., 3] -> [..., 3] as elementwise f32 sums.
+
+    Not an einsum: a `dot_general` without an explicit precision may run in
+    TF32 on a GPU's tensor cores (about three decimal digits), which would move
+    ray origins, light vertices and normals."""
+    return jnp.sum(m * v[..., None, :], axis=-1)
 
 
 def reflect(d, n):

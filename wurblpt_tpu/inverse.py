@@ -1,6 +1,6 @@
 """Inverse rendering: optimize scene/camera parameters against image targets.
 
-The reference has no autodiff at all; this module is the TPU framework's
+The reference has no autodiff at all; this module is this framework's
 flagship differentiable-rendering entry point. The design is parameter-pytree
 -based and optimizer-agnostic:
 

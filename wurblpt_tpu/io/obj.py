@@ -270,14 +270,16 @@ def import_texture(path: str, srgb: bool = True,
                    bump_multiplier: float = 1.0,
                    cache: Optional[dict] = None):
     """Load an image file into an ImageTexture (PIL-backed; png/jpg/tga/bmp/
-    webp...). Returns None if the file is missing or unreadable."""
+    webp...). Returns None if the file is missing or unreadable; raises
+    ImportError if PIL is not installed, so a textured material never
+    silently loses its texture."""
     key = (os.path.abspath(path), srgb, to_normal_map, bump_multiplier)
     if cache is not None and key in cache:
         return cache[key]
     tex = None
-    try:
-        from PIL import Image
+    from PIL import Image
 
+    try:
         img = Image.open(path)
         arr = np.asarray(img)
         if arr.dtype == np.uint8:
@@ -479,11 +481,10 @@ def import_geometry(path: str) -> List[B.Mesh]:
 # ---------------------------------------------------------------------------
 
 def _texture_to_png(tex, path_base: str, fallback_color) -> Optional[str]:
-    """Rasterize a texture descriptor to PNG; returns the filename or None."""
-    try:
-        from PIL import Image
-    except Exception:
-        return None
+    """Rasterize a texture descriptor to PNG; returns the filename, or None
+    for a texture kind that has no raster form. Needs PIL only when there is
+    a texture to write, and raises ImportError without it rather than export
+    a scene that would re-import untextured."""
     if isinstance(tex, B.ImageTexture):
         img = np.asarray(tex.image, np.float32)
     elif isinstance(tex, B.ConstantTexture):
@@ -501,6 +502,8 @@ def _texture_to_png(tex, path_base: str, fallback_color) -> Optional[str]:
         img = img[..., None]
     if img.shape[-1] == 1:
         img = np.repeat(img, 3, axis=-1)
+    from PIL import Image
+
     out = path_base + ".png"
     Image.fromarray(
         (np.clip(img[..., :3], 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)

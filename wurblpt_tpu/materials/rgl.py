@@ -5,8 +5,8 @@ The reference evaluates measured BRDFs through the vendored powitacq library
 parameterization stores, per incident direction (phi_i, theta_i), a visible-NDF
 warp, a luminance warp and RGB (or spectral) reflectance tables, all as
 piecewise-bilinear 2D distributions ("Marginal2D") with marginal/conditional
-CDFs for sample warping.  That structure is already table-based, so the
-TPU-native design keeps the exact numerics but re-expresses every operation as
+CDFs for sample warping.  That structure is already table-based, so this
+design keeps the exact numerics but re-expresses every operation as
 vectorized gathers over the whole ray wavefront:
 
 * host side (numpy): the ``tensor_file`` binary format is parsed, per-slice
@@ -299,9 +299,8 @@ def _search(fetch, n, u, max_size: int, strict: bool):
 
 def _extract(rowvals, idx):
     """rowvals[..., idx] WITHOUT a per-lane gather: one-hot reduce over the
-    (small, static) grid axis. Row gathers are descriptor-priced on this TPU
-    (~0.7 ms per 131072 lanes each, PROFILE.md 1c); once a whole row is
-    fetched, point lookups inside it must be arithmetic, not more gathers."""
+    (small, static) grid axis. Once a whole row is fetched, point lookups
+    inside it are arithmetic, not more per-lane gathers."""
     S = rowvals.shape[-1]
     iota = jnp.arange(S, dtype=jnp.int32)
     oh = (iota == idx[..., None]).astype(rowvals.dtype)
@@ -326,9 +325,8 @@ def _pair_rows(a):
     """Pack each bilinear row PAIR into one row: out[..., y, :] =
     [row y | row y+1 (clamped)] along the last axis.
 
-    Every bilinear fetch needs rows y0 and y0+1; gathers are priced per row
-    descriptor on this TPU (~17 ns/row regardless of row size, PROFILE.md
-    1c), so one 2W-wide gather replaces two W-wide ones. Pure function of
+    Every bilinear fetch needs rows y0 and y0+1, so one 2W-wide gather
+    replaces two W-wide ones. Pure function of
     the loop-invariant tables — XLA hoists it out of the wavefront loop
     (mat_packed precedent) and CSEs the repeated pack expressions."""
     nxt = jnp.concatenate([a[..., 1:, :], a[..., -1:, :]], axis=-2)
@@ -372,7 +370,7 @@ class _Warp2(NamedTuple):
         when the padded axis length is 1, every material's count is <= 1, so
         `_param_weights` returns weight exactly 0 for the +1 corner — and
         most RGL materials are isotropic (P == 1), halving (or with T == 1
-        quartering) the descriptor-priced gathers per fetch."""
+        quartering) the row gathers per fetch."""
         p_single = arr.shape[1] == 1
         t_single = arr.shape[2] == 1
         pi1 = jnp.minimum(self.pi + 1, arr.shape[1] - 1)

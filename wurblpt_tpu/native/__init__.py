@@ -2,7 +2,7 @@
 
 The reference keeps its latency-sensitive host steps — BVH build, OBJ parse —
 in optimized C++ (``libwurblpt/bvh.hpp``, ``tiny_obj_loader.h``). This package
-does the same for the TPU framework: small C++ shared libraries compiled
+does the same here: small C++ shared libraries compiled
 on first use with the local toolchain and called through ctypes (no pybind11
 in this environment). Every native component has a pure-numpy fallback so the
 framework still works where no C++ toolchain exists.

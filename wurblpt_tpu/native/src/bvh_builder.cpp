@@ -1,7 +1,7 @@
 // Binned-SAH BVH builder producing a threaded (hit-link / miss-link) flat tree.
 //
 // Host-side native equivalent of the reference's SAH builder + flattener
-// (/root/reference/libwurblpt/bvh.hpp:93-246), redesigned for the TPU wavefront
+// (/root/reference/libwurblpt/bvh.hpp:93-246), redesigned for the lockstep wavefront
 // traversal in wurblpt_tpu/accel/traverse.py: nodes are emitted in DFS
 // pre-order so that "advance on AABB hit" is simply `node + 1`, and each node
 // carries a `miss_next` link (next pre-order node whose subtree does not

@@ -1,4 +1,4 @@
-"""Multi-chip / multi-host parallelism (the reference's mpi.hpp, TPU-native)."""
+"""Multi-device / multi-host parallelism (the reference's mpi.hpp, in JAX)."""
 
 from .sharding import (
     make_ray_mesh,

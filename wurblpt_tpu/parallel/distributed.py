@@ -2,11 +2,11 @@
 
 The reference scales across nodes with a hand-rolled MPI master/worker block
 scheduler (``libwurblpt/mpi.hpp:36-289``): rank 0 runs a coordinator thread
-serving a dynamic 4096-pixel block queue over MPI point-to-point. The TPU-native
+serving a dynamic 4096-pixel block queue over MPI point-to-point. The JAX
 replacement (SURVEY.md section 2.2 / section 5.8) has NO custom transport at
 all: ``jax.distributed.initialize`` brings up the processes, one global
-``Mesh`` spans every chip (ICI within a slice, DCN across slices), the render
-step is jitted over that mesh with the ray/pixel axis sharded and the scene
+``Mesh`` spans every device (NVLink within a host, the network across
+hosts), the render step is jitted over that mesh with the ray/pixel axis sharded and the scene
 replicated, and XLA inserts the collectives (framebuffer gather, gradient
 psum). Dynamic block pulling is replaced by static equal shards: each chip owns
 tens of thousands of wavefront lanes whose path-depth variance averages out, so
@@ -37,10 +37,12 @@ def init_multihost(
     device use). The analog of ``MPICoordinator``'s MPI_Init handshake
     (mpi.hpp:189-203) — except there is no protocol to speak afterwards.
 
-    With no arguments, JAX auto-detects cluster environment variables (TPU
-    pods, SLURM, Open MPI). Returns True if distributed mode is active.
-    Safe to call in single-process runs: it no-ops when no cluster
-    environment is present and no explicit coordinator was given.
+    With no arguments, JAX auto-detects cluster environment variables
+    (SLURM, Open MPI); on a machine without them, pass the coordinator
+    address (e.g. ``localhost:<port>``), process count and id explicitly.
+    Returns True if distributed mode is active. Safe to call in
+    single-process runs: it no-ops when no cluster environment is present
+    and no explicit coordinator was given.
     """
     try:
         jax.distributed.initialize(
@@ -57,12 +59,11 @@ def init_multihost(
 def make_global_mesh(axis: str = "rays", devices=None) -> Mesh:
     """One 1-D mesh over ALL global devices (every chip on every host).
 
-    Device order groups each host's chips contiguously, so a framebuffer
+    Device order groups each host's devices contiguously, so a framebuffer
     row-sharded over this axis keeps each host's rows local and the final
-    gather rides ICI within a slice before touching DCN. For multi-slice
-    topologies, a hybrid mesh (``mesh_utils.create_hybrid_device_mesh``) can
-    split the axis (dcn, ici) — with pure data parallelism over rays the 1-D
-    form is sufficient: there is no cross-chip traffic until the reduction.
+    gather stays within a host before touching the network. With pure data
+    parallelism over rays the 1-D form is sufficient: there is no
+    cross-device traffic until the reduction.
     """
     if devices is None:
         devices = jax.devices()  # global across processes

@@ -3,7 +3,7 @@
 Replaces the reference's MPI master/worker block scheduler (``libwurblpt/
 mpi.hpp:36-289``) with the idiomatic JAX recipe (SURVEY.md section 2.2): one
 global `Mesh` with a "rays" axis, the pixel/sample batch sharded across it, the
-scene pytree replicated in HBM on every chip, and XLA inserting the collectives
+scene pytree replicated in every device's memory, and XLA inserting the collectives
 (gradient psum, framebuffer gather) from sharding annotations — no hand-written
 transport. Reproducibility across chip counts is free because the RNG is
 counter-based per (pixel, sample): a pixel's radiance does not depend on which
@@ -12,23 +12,17 @@ which are order-dependent but pinned per pixel — both designs give
 chip-count-invariant images; ours also gives order invariance).
 
 Dynamic load balancing: the reference pulls 4096-pixel blocks from a queue
-(mpi.hpp:166-178). Here every chip gets an equal contiguous slice of the
-(pixel x sample) ray space per pass; variance in path depth is averaged out
-because each chip holds tens of thousands of lanes that retire independently
-inside the masked wavefront loop. Round-3 profiling sharpened the rationale:
-on TPU the per-iteration cost of the wavefront body is LANE-COUNT
-proportional (lockstep masked work + per-row gather descriptors), not
-live-path proportional — two chips holding equal lane counts take the same
-wall time per iteration regardless of which chip's paths die first, and
-iteration counts equalize through persistent-lane regeneration. The load
-imbalance the reference's block queue exists to fix (a thread stuck on a
-slow pixel) has no analog; what WOULD need rebalancing is unequal lane
-counts, which the static equal split rules out by construction.
+(mpi.hpp:166-178). Here every device gets an equal contiguous slice of the
+(pixel x sample) ray space; variance in path depth is averaged out because
+each device holds tens of thousands of lanes that retire independently
+inside the masked wavefront loop, and persistent-lane regeneration keeps
+iteration counts close. Whether the bands of a real frame stay balanced on
+GPUs (a band of sky finishes early) is not yet measured (ROADMAP S7).
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache
 from typing import Optional
 
 import jax
@@ -124,43 +118,50 @@ def render_frame_wavefront_sharded(
     params: RenderParams = RenderParams(),
     max_lanes: int = 131072,
 ):
-    """The PRODUCTION inference path on a mesh: the persistent-lane wavefront
-    with its framebuffer rows sharded over the "rays" axis (scene replicated,
-    lanes row-partitioned by GSPMD from the output constraint).
+    """The PRODUCTION inference path on a mesh: the persistent-lane wavefront,
+    each device rendering its own band of ceil(height / n_dev) frame rows
+    (scene replicated, framebuffer row-sharded over the "rays" axis).
 
-    Same height-padding contract as `render_frame_sharded`; bitwise equality
-    with the single-device wavefront is guaranteed by the counter-based RNG
-    (verified in tests/test_sharding.py).
+    The split is explicit (`shard_map` over `render_frame_wavefront`'s
+    `row_window`): GSPMD, left to propagate a sharding from the output
+    constraint, does not partition the wavefront's while-loop lanes and every
+    device would render the whole frame. Pixel and sample ids stay global, so
+    the image equals the single-device wavefront up to the order in which a
+    pixel's sample lanes are summed (verified in tests/test_sharding.py).
+    Motion-blurred frames (t0 != t1) go through `render_frame_sharded`, as
+    the single-device wavefront hands them to the pass renderer.
     """
-    from ..render.integrator import render_frame_wavefront
-
+    if static.has_anim and t0 != t1:
+        return render_frame_sharded(
+            scene, static, cam, cam_cfg, sensor, width, height, samples_sqrt,
+            mesh=mesh, t0=t0, t1=t1, params=params)
     if mesh is None:
         mesh = make_ray_mesh()
-    axis = mesh.axis_names[0]
-    n_dev = mesh.devices.size
-    can_pad = cam_cfg.surround == SurroundMode.OFF and not cam_cfg.stereo
-    if can_pad:
-        pad_height = -(-height // n_dev) * n_dev
-    else:
-        assert height % n_dev == 0, (
-            f"height {height} not divisible by {n_dev} devices "
-            "(surround/stereo frames cannot be row-padded)"
-        )
-        pad_height = height
-
-    rep = NamedSharding(mesh, P())
-    out_sh = NamedSharding(mesh, P(axis, None, None))
-
-    def run(scene_in, cam_in):
-        img = render_frame_wavefront(
-            scene_in, static, cam_in, cam_cfg, sensor, width, pad_height,
-            samples_sqrt, t0, t1, params, max_lanes=max_lanes,
-        )
-        return jax.lax.with_sharding_constraint(img, out_sh)
-
-    fn = jax.jit(run, in_shardings=(rep, rep), out_shardings=out_sh)
+    fn = _wavefront_bands(static, cam_cfg, sensor, width, height, samples_sqrt,
+                          mesh, float(t0), float(t1), params, max_lanes)
     img = fn(scene, cam)
-    return img[:height] if pad_height != height else img
+    return img[:height] if img.shape[0] != height else img
+
+
+@lru_cache(maxsize=16)
+def _wavefront_bands(static, cam_cfg, sensor, width, height, samples_sqrt,
+                     mesh, t0, t1, params, max_lanes):
+    """Cached jitted (scene, cam) -> row-sharded frame, keyed on the static
+    configuration so repeated frames reuse one compiled program."""
+    from ..render.integrator import render_frame_wavefront
+
+    axis = mesh.axis_names[0]
+    n_rows = -(-height // mesh.devices.size)
+
+    def band(scene_in, cam_in):
+        row0 = jax.lax.axis_index(axis) * n_rows
+        return render_frame_wavefront(
+            scene_in, static, cam_in, cam_cfg, sensor, width, height,
+            samples_sqrt, t0, t1, params, max_lanes=max_lanes,
+            row_window=(row0, n_rows))
+
+    return jax.jit(jax.shard_map(band, mesh=mesh, in_specs=(P(), P()),
+                                 out_specs=P(axis), check_vma=False))
 
 
 def training_step(

@@ -123,14 +123,13 @@ PER_LIGHT_MIS_MIN = 8  # lights; below this the O(L) mixture broadcast is cheap
 # Packed material rows: ONE gather for all per-lane material attributes
 # ---------------------------------------------------------------------------
 #
-# Measured round 4 (PROFILE.md 1b): on this TPU toolchain a row gather costs
-# ~0.7-0.8 ms per 131072 lanes REGARDLESS of table or row size (row-descriptor
-# pricing) — and the bounce body was doing ~15 separate `mt.field[hr.mat]`
-# gathers per iteration (typ, flags, albedo, emissive, p0..p2, texture ids,
-# rgl id, again in emitted and bsdf_eval). Packing the MaterialTable into a
-# single [M, 28] f32 matrix (ints bitcast) makes all of them ONE gather per
-# bounce — the same trick as the wide-BVH node rows and the MXU attribute
-# matmul. The packed matrix is built per trace from the (differentiable)
+# The bounce body would otherwise do ~15 separate `mt.field[hr.mat]` gathers
+# per iteration (typ, flags, albedo, emissive, p0..p2, texture ids, rgl id,
+# again in emitted and bsdf_eval). Packing the MaterialTable into a single
+# [M, 28] f32 matrix (ints bitcast) makes all of them ONE gather per bounce —
+# the same trick as the wide-BVH node rows and the matmul intersector's
+# attribute matrix. (On the previous accelerator each row gather cost the
+# same whatever the row size; on the H100 this is not yet measured.) The packed matrix is built per trace from the (differentiable)
 # table inside jit, so XLA hoists it out of the bounce loop and gradients
 # still flow to the material parameters through the pack.
 

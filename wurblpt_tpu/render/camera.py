@@ -59,9 +59,9 @@ class CameraConfig:
     #                                   test); 8 under-converges ~10x at
     #                                   k1=-0.3-class distortion (advisor
     #                                   round-4 finding), so the PUBLIC default
-    #                                   is 32 and the bench config — where 8 was
-    #                                   measured bit-identical, PROFILE.md 1b —
-    #                                   opts into 8 explicitly.
+    #                                   is 32 and the bench config — where 8
+    #                                   renders bit-identically — opts into 8
+    #                                   explicitly.
     anim_id: int = -1                 # scene animation driving the pose per ray
     #                                   time (camera.hpp:56-111: a camera owns an
     #                                   Animation; -1 = static CameraParams pose)

@@ -5,7 +5,7 @@ Reference: ``libwurblpt/envmap.hpp``. The key idea kept from the reference
 built on an equal-area square<->sphere map, independent of how the radiance
 function is parameterized — so equirectangular and cube maps share one sampler.
 
-Differences from the reference, chosen for TPU:
+Differences from the reference, chosen for batched evaluation:
 * the equal-area map is the cylindrical (Archimedes) map (exactly equal-area,
   branch-free, cheap to invert) rather than the reference's square map;
 * cell selection uses an O(1) alias table instead of a binary search over a
@@ -59,8 +59,8 @@ def sphere_to_square(d):
 
 # Above this texel count the 2x2-patch images (4x memory) are skipped and
 # bilinear taps fall back to four point gathers: a 4k equirect HDR would
-# otherwise pin hundreds of MB of HBM for the whole render (advisor round-4
-# finding). Below it the single row gather wins (PROFILE.md 1c).
+# otherwise pin hundreds of MB of device memory for the whole render. Below
+# it the single row gather is used.
 PATCH_MAX_TEXELS = 1 << 21
 
 
@@ -70,11 +70,9 @@ def _bilinear_wrap(img, u, v):
     ONE row gather instead of four: a [H, W, 16] patch image holding each
     texel's 2x2 neighborhood (u-wrapped, v-clamped) is built here — it is a
     pure function of `img`, so XLA hoists it out of the render loop — and the
-    four taps come from a single gathered row (row gathers are
-    descriptor-priced, ~0.8 ms per 131072 lanes each; PROFILE.md 1c). This
-    was why equirect radiance measured 37% slower than the cube map's
-    nearest lookup. Envmaps larger than PATCH_MAX_TEXELS trade the gather
-    count back for memory (4 point gathers, no 4x patch image)."""
+    four taps come from a single gathered row. Envmaps larger than
+    PATCH_MAX_TEXELS trade the gather count back for memory (4 point
+    gathers, no 4x patch image)."""
     h, w = img.shape[0], img.shape[1]
     x = u * w - 0.5
     y = v * h - 0.5
@@ -138,9 +136,8 @@ def _cube_lookup(img, d):
     # BILINEAR per-face lookup with edge clamp — the reference's cube faces
     # are TextureImages sampled bilinearly (texture_image.hpp:182-212 with
     # x1/y1 clamped by value(), :85-90). One gather via a [6, H, W, 16]
-    # 2x2-patch image (pure function of the faces, hoisted; PROFILE.md 1c);
-    # large face sets fall back to four point gathers (PATCH_MAX_TEXELS
-    # memory gate, advisor round-4 finding).
+    # 2x2-patch image (pure function of the faces, hoisted); large face sets
+    # fall back to four point gathers (PATCH_MAX_TEXELS memory gate).
     us = jnp.maximum(u * w - 0.5, 0.0)
     vs = jnp.maximum(v * h - 0.5, 0.0)
     x0 = jnp.clip(us.astype(jnp.int32), 0, w - 1)
@@ -206,8 +203,8 @@ def env_sample(env: EnvMapArrays, u3):
     res = env.pdf_table.shape[0]
     n = res * res
     # ONE packed [n, 4] row per cell (alias prob, alias idx, own pdf, ALIASED
-    # cell's pdf): a single descriptor-priced gather per sample instead of 3
-    # naive / 2 round-4 gathers (PROFILE.md 1b/1c). The aliased-cell pdf is
+    # cell's pdf): a single gather per sample instead of 3 naive ones. The
+    # aliased-cell pdf is
     # resolved at pack time (loop-invariant, hoisted by XLA; gradients flow
     # through the pack). alias ids stored as exact float values (< 2^24):
     # denormal bit patterns are flushed by some XLA op sequences

@@ -2,9 +2,9 @@
 
 The reference intersects through virtual ``Hitable::hit`` calls under a stack-based
 BVH traversal (``bvh.hpp:277-311``, ``hitable_triangle.hpp:189-274``,
-``hitable_sphere.hpp:128-151``). On TPU we intersect a whole ray batch against
-primitive *tiles*: a [RAYS x TILE] broadcasted test is pure VPU work that XLA
-pipelines well; a `lax.fori_loop` over tiles keeps peak memory bounded. For scenes
+``hitable_sphere.hpp:128-151``). Here a whole ray batch is intersected against
+primitive *tiles*: a [RAYS x TILE] broadcasted test is elementwise work that XLA
+fuses well; a `lax.fori_loop` over tiles keeps peak memory bounded. For scenes
 beyond ~100k primitives the threaded-BVH path (:mod:`wurblpt_tpu.accel`) culls
 tiles first.
 
@@ -13,7 +13,7 @@ reference's f64 edge fallback re-expressed as two-product-compensated f32
 (hitable_triangle.hpp:189-274; SURVEY.md section 7 "watertight without
 doubles") — it is the test used by the BVH leaf path (accel/traverse), which
 serves every mesh-scale scene. The Moller-Trumbore tile test remains for the
-brute-force sweep and the MXU matmul intersector, whose single-matmul
+brute-force sweep and the matmul intersector (intersect_mxu), whose single-matmul
 formulation is inherently MT-shaped; small scenes that route there have no
 shared-edge meshes of consequence, and parity holds on the benchmark scenes.
 
@@ -30,7 +30,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from ..core.onb import onb_from_normal
-from ..core.vecmath import cross, dot, normalize, safe_sqrt
+from ..core.vecmath import cross, dot, matvec, normalize, safe_sqrt
 from ..scene.ir import SceneArrays, Triangles
 
 # Host scalar, NOT jnp: a module-level device array becomes a hoisted
@@ -62,7 +62,7 @@ class HitRecord(NamedTuple):
 def _two_prod(a, b):
     """Dekker/Veltkamp exact product: a*b == p + err in f32 (no FMA needed).
 
-    TPU has no f64; the reference's double-precision edge fallback
+    The device path stays in f32; the reference's double-precision edge fallback
     (hitable_triangle.hpp:240-250) becomes error-compensated f32 (SURVEY.md
     section 7 "watertight without doubles"). The 4097 splitter is 2^12+1 for
     f32's 24-bit mantissa."""
@@ -294,7 +294,7 @@ def _closest_spheres(o, d, scene: SceneArrays, t_min, t_max, best, obj_rays=None
 
 
 def mxu_eligible(scene: SceneArrays, anim_ctx=None) -> bool:
-    """True when the single-matmul MXU intersector (intersect_mxu) applies:
+    """True when the single-matmul intersector (intersect_mxu) applies:
     static scene, no BVH requested, and a moderate primitive count."""
     from .intersect_mxu import MXU_MAX_PRIMS
 
@@ -312,17 +312,16 @@ def scene_raw_hit(scene: SceneArrays, o, d, t_min, t_max, anim_ctx=None, ms=None
     anim_ctx: scene.animation.AnimCtx for animated scenes — rays are moved to
     each animation's object space once and prims gather their lane's ray.
     ms: precomputed intersect_mxu.MxuScene — routes the cast through the
-    single-matmul MXU intersector (built once per trace by the integrator).
+    single-matmul intersector (built once per trace by the integrator).
     """
     if ms is not None:
-        # A Pallas fused-cast kernel was tried and REMOVED (round 3): inside
-        # the wavefront while_loop its custom-call boundary broke XLA's body
-        # fusion (measured 125 -> 321 ms/frame at 65k lanes), and the only
-        # batch size where it won (>=512k standalone rays) never occurs in
-        # practice. A VMEM-resident Pallas BVH traversal is not expressible
-        # either: Mosaic on this toolchain rejects every per-lane dynamic
-        # gather form (tools/probe_pallas_gather.py). The MXU matmul below IS
-        # the TPU-native fast path.
+        # Plain `lax`, left to XLA: one [N, 12] @ [12, cols] product at
+        # HIGHEST precision (not TF32) plus a fused decode. A hand-written
+        # fused-cast kernel was tried on the previous accelerator and removed:
+        # inside the wavefront while_loop its custom-call boundary broke
+        # XLA's fusion of the loop body. On the H100 the product is bound by
+        # memory bytes, not FLOPs (K=12); its cost against the BVH path is
+        # ROADMAP S4.
         from .intersect_mxu import mxu_closest_hit
 
         t, prim, u, v, _ = mxu_closest_hit(ms, o, d, t_min, t_max)
@@ -353,7 +352,7 @@ def scene_fused_cast(scene: SceneArrays, o, d, t_min, t_max, n_closest: int,
     disable a lane — it retires on the first step). The integrator uses this
     to batch a bounce's closest cast with the PREVIOUS bounce's deferred NEE
     shadow rays, so the traversal's lockstep fixed costs (BVH path) or the
-    feature matmul (MXU path) are paid once per bounce instead of once per
+    feature matmul (matmul path) are paid once per bounce instead of once per
     cast. Returns ((t, prim, u, v) over the closest segment, occluded over
     the any-hit segment).
     """
@@ -525,7 +524,7 @@ def assemble_hit(scene: SceneArrays, o, d, t, prim, u, v, anim_ctx=None, ms=None
         pos_local = o_obj + t[..., None] * d_obj
 
     if ms is not None and n_tri > 0:
-        # MXU path: one-hot attribute matmul instead of row gathers.
+        # Matmul path: one-hot attribute matmul instead of row gathers.
         from .intersect_mxu import mxu_tri_attrs
 
         k_ids = jax.lax.broadcasted_iota(jnp.int32, (prim.shape[0], ms.kt), 1)
@@ -535,9 +534,8 @@ def assemble_hit(scene: SceneArrays, o, d, t, prim, u, v, anim_ctx=None, ms=None
         ti = jnp.clip(prim_safe, 0, n_tri - 1)
         T = scene.tris
         # ONE packed attribute row per triangle (n0|n1|n2|uv*3|tan*3|gn|
-        # mat,flags float-encoded): field-by-field indexing paid ~14
-        # descriptor-priced gathers per bounce on the BVH path (~0.7 ms per
-        # 131072 lanes EACH; PROFILE.md 1c). The pack is a pure function of
+        # mat,flags float-encoded): one gather instead of ~14 field-by-field
+        # gathers per bounce on the BVH path. The pack is a pure function of
         # the triangle table, hoisted out of the render loop by XLA.
         gn_all = normalize(cross(T.e1, T.e2))
         tri_packed = jnp.concatenate([
@@ -589,6 +587,15 @@ def assemble_hit(scene: SceneArrays, o, d, t, prim, u, v, anim_ctx=None, ms=None
         n_sph = normalize(local)
         uv_sph, tan_sph = _sphere_uv_tangent(n_sph)
         mat_sph = jnp.round(srow[..., 4]).astype(jnp.int32)
+        if anim_ctx is None:
+            # Re-project the hit onto the surface (pbrt's sphere refinement):
+            # o + t*d carries the rounding of t, and a point that lands inside
+            # the sphere by more than min_hit_distance * cos lets a grazing
+            # scatter ray re-hit the sphere from inside and lose its sample
+            # (seen on the GPU in the white furnace).
+            is_sph = (hit & ~is_tri)[..., None]
+            position = jnp.where(is_sph, center + radius[..., None] * n_sph,
+                                 position)
     else:
         n_sph = jnp.zeros_like(position)
         uv_sph = jnp.zeros(position.shape[:-1] + (2,))
@@ -608,9 +615,9 @@ def assemble_hit(scene: SceneArrays, o, d, t, prim, u, v, anim_ctx=None, ms=None
         from ..scene.animation import anim_forward_frames
 
         m_fwd, m_nrm, _ = anim_forward_frames(scene.anims, aid_win, anim_ctx.time)
-        normal = normalize(jnp.einsum("nij,nj->ni", m_nrm, normal))
-        geom_normal = normalize(jnp.einsum("nij,nj->ni", m_nrm, geom_normal))
-        tangent = normalize(jnp.einsum("nij,nj->ni", m_fwd, tangent))
+        normal = normalize(matvec(m_nrm, normal))
+        geom_normal = normalize(matvec(m_nrm, geom_normal))
+        tangent = normalize(matvec(m_fwd, tangent))
 
     # Backside: geometric normal faces away from the incoming ray.
     backside = dot(d, geom_normal) > 0.0

@@ -1,11 +1,10 @@
-"""Ray-scene intersection as ONE MXU matmul — the TPU-native hot path.
+"""Ray-scene intersection as ONE matrix product (the brute-force cast).
 
 The reference walks a BVH and evaluates Moller-Trumbore per (ray, triangle)
-pair with scalar code (``hitable_triangle.hpp:189-274``). On TPU, per-pair
-elementwise evaluation materializes [N, T, 3] temporaries in HBM and runs on
-the VPU; profiling (tools/profile_hotpath.py) showed 24 ms per cast on the
-Cornell box. The systolic array is the machine's throughput engine, so here
-the intersection *is* a matmul:
+pair with scalar code (``hitable_triangle.hpp:189-274``). Batched per-pair
+elementwise evaluation would materialize [N, T, 3] temporaries in device
+memory, so here the intersection *is* a matmul (the module name records the
+matrix unit of the accelerator it was first written for):
 
 Every MT determinant is trilinear in (ray origin o, ray direction d) and the
 triangle's (p0, e1, e2). With the ray feature vector
@@ -27,17 +26,22 @@ and the sphere quadratic's (half_b, c) are linear too:
 
 so ONE [N, 12] @ [12, 4*T + 2*S] matmul (f32, precision=HIGHEST) computes
 every ray/primitive test; a fused elementwise decode + min-reduction finds the
-closest hit. No gathers, no [N, T, 3] temporaries, MXU utilization instead of
-VPU. Rays and primitives are translated by a scene-center offset first so the
+closest hit. No gathers, no [N, T, 3] temporaries. The product is plain
+`lax`, left to XLA; HIGHEST precision keeps it out of TF32 on a GPU. With K=12
+it is bound by memory bytes, not FLOPs, on the H100 (the [N, cols] product is
+written and read back by the decode). Rays and primitives are translated by a
+scene-center offset first so the
 o x d cancellation error stays bounded by the scene extent (not the distance
 to the world origin).
 
 Hit ATTRIBUTE assembly uses the same trick: the winning one-hot [N, T]
 (exact 0/1 floats) times a per-triangle attribute matrix [T, F] interpolates
-normals/uv/tangents on the MXU instead of row-gathers (profiled 9.8 ms -> MXU).
+normals/uv/tangents with a matmul instead of row gathers.
 
 Used for moderate primitive counts (total padded columns <= MXU_MAX_PRIMS) in
 non-animated scenes; larger scenes go through the BVH path (accel/traverse).
+The crossover was set on the previous accelerator and is not yet measured on
+the H100 (ROADMAP S4).
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ from ..scene.ir import SceneArrays
 # const_arg in every program that closes over it (jax 0.9.0 drops those
 # on cross-program re-dispatch; see tests/conftest.py).
 BIG = np.float32(3.0e37)
-MXU_MAX_PRIMS = 2048          # beyond this, BVH beats brute force
+MXU_MAX_PRIMS = 2048          # beyond this, the BVH path is used (ROADMAP S4)
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -115,7 +119,7 @@ def build_mxu_scene(scene: SceneArrays) -> MxuScene:
             [zero[:, None], z3, -jnp.cross(p0, e1), -e1,
              zero[:, None], zero[:, None]], 1)
         # grouped blocks [det | t | u | v], each kt wide: the decode then works
-        # on contiguous [N, kt] slices (no strided relayout on TPU).
+        # on contiguous [N, kt] slices (no strided relayout).
         tri_feat = jnp.concatenate([det_col, t_col, u_col, v_col], 0)  # [4kt, 12]
         cols.append(tri_feat)
     if ns:
@@ -133,7 +137,7 @@ def build_mxu_scene(scene: SceneArrays) -> MxuScene:
 
     feat = jnp.concatenate(cols, 0).T  # [12, 4kt + 2ks]
 
-    # Triangle attribute matrix for MXU hit assembly:
+    # Triangle attribute matrix for matmul hit assembly:
     # [n0 n1 n2 | uv0 uv1 uv2 | tan0 tan1 tan2 | gn | mat flags] = 9+6+9+3+2 = 29
     if nt:
         T = scene.tris
@@ -203,7 +207,7 @@ def _decode_closest(ms: MxuScene, prod, d, t_min, t_max):
             & (k_ids < ms.n_tris)
         )
         t_all = jnp.where(valid, tn / jnp.where(det == 0.0, 1.0, det), BIG)
-        # Winner selection without row gathers (slow on TPU): min + one-hot
+        # Winner selection without row gathers: min + one-hot
         # mask reductions; ties broken toward the lowest prim id.
         tk = jnp.min(t_all, 1)
         hit_tri = tk < best_t
@@ -325,7 +329,7 @@ def mxu_fused_hit(ms: MxuScene, o, d, t_min, t_max, n_closest: int):
     The first `n_closest` rows are closest-hit queries (winner-selection
     decode), the rest occlusion queries (pure-OR decode). Merging a bounce's
     closest cast with its deferred NEE shadow casts halves the per-cast
-    launch/stage overhead and lets the MXU run one [N_total, 12] matmul
+    launch/stage overhead and runs one [N_total, 12] matmul
     instead of two smaller ones. Returns
     ((t, prim, u, v, onehot) over [:n_closest], occluded over [n_closest:]).
     """

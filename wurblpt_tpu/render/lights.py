@@ -33,7 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from ..core import sampler
-from ..core.vecmath import cross, dot, normalize, safe_sqrt
+from ..core.vecmath import cross, dot, matvec, normalize, safe_sqrt
 from ..scene.ir import SceneArrays
 
 _TWO_PI = 2.0 * jnp.pi
@@ -80,9 +80,9 @@ def _light_tri_data(scene: SceneArrays, frames):
     p0, e1, e2 = T.p0[ti][None], T.e1[ti][None], T.e2[ti][None]
     if frames is not None:
         m, t = frames  # m [N,L,3,3], t [N,L,3]
-        p0 = jnp.einsum("nlij,nlj->nli", m, jnp.broadcast_to(p0, m.shape[:2] + (3,))) + t
-        e1 = jnp.einsum("nlij,nlj->nli", m, jnp.broadcast_to(e1, m.shape[:2] + (3,)))
-        e2 = jnp.einsum("nlij,nlj->nli", m, jnp.broadcast_to(e2, m.shape[:2] + (3,)))
+        p0 = matvec(m, p0) + t
+        e1 = matvec(m, e1)
+        e2 = matvec(m, e2)
     return is_tri, p0, e1, e2
 
 
@@ -97,9 +97,7 @@ def _light_sphere_data(scene: SceneArrays, frames):
     center, radius = S.center[si][None], S.radius[si][None]
     if frames is not None:
         m, t = frames
-        center = jnp.einsum(
-            "nlij,nlj->nli", m, jnp.broadcast_to(center, m.shape[:2] + (3,))
-        ) + t
+        center = matvec(m, center) + t
         # Sphere radius under TRS scale (uniform scale assumed, like the
         # reference's animated sphere): |M column| = s.
         s_mean = jnp.linalg.norm(m, axis=-2).mean(-1)
@@ -268,9 +266,8 @@ def lights_sample(
 
     # STATIC lights: one packed [L, 12] row per light (tri p0|e1|e2 or
     # sphere center+radius; prim id and alias entries bitcast) — the pick
-    # plus geometry fetch is then TWO row gathers instead of ~8 (row gathers
-    # are descriptor-priced, ~0.8 ms per 131072 lanes each; PROFILE.md 1b).
-    # The pack is loop-invariant, hoisted out of the bounce loop by XLA.
+    # plus geometry fetch is then TWO row gathers instead of ~8. The pack is
+    # loop-invariant, hoisted out of the bounce loop by XLA.
     packed = None
     if frames is None:
         lp_all = scene.light_prims
@@ -344,9 +341,9 @@ def lights_sample(
             T = scene.tris
             p0, e1, e2 = T.p0[ti], T.e1[ti], T.e2[ti]
         if m_pick is not None:
-            p0 = jnp.einsum("nij,nj->ni", m_pick, p0) + t_pick
-            e1 = jnp.einsum("nij,nj->ni", m_pick, e1)
-            e2 = jnp.einsum("nij,nj->ni", m_pick, e2)
+            p0 = matvec(m_pick, p0) + t_pick
+            e1 = matvec(m_pick, e1)
+            e2 = matvec(m_pick, e2)
         bary = sampler.in_triangle(u3[..., 1:3])
         q = p0 + bary[..., 0:1] * e1 + bary[..., 1:2] * e2
         d_tri = q - origin
@@ -373,7 +370,7 @@ def lights_sample(
             center = S.center[si]
             radius = S.radius[si]
         if m_pick is not None:
-            center = jnp.einsum("nij,nj->ni", m_pick, center) + t_pick
+            center = matvec(m_pick, center) + t_pick
             radius = radius * jnp.linalg.norm(m_pick, axis=-2).mean(-1)
         oc = center - origin
         dist2 = jnp.sum(oc * oc, axis=-1)

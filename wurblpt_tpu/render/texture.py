@@ -75,8 +75,8 @@ def _perlin_signed(u, v, seed):
     The reference interpolates dot products of random unit gradients at the
     cell corners with a Hermite fade; its output is SIGNED (roughly [-0.7,
     0.7]), unlike `_gradient_noise` which remaps to [0, 1]. Lattice hashing is
-    counter-based (no 256-entry permutation tables — a hash is cheaper than
-    three gathered tables on TPU and has no tiling period)."""
+    counter-based (no 256-entry permutation tables — a hash replaces three
+    per-lane table gathers and has no tiling period)."""
     iu, iv = jnp.floor(u), jnp.floor(v)
     fu, fv = u - iu, v - iv
     iu, iv = iu.astype(jnp.int32), iv.astype(jnp.int32)
@@ -163,10 +163,8 @@ def sample_texture(tt: TextureTable, tex_id, uv, time=None):
     The descriptor fields (type, params, affines, image id and its h/w) are
     packed into ONE [NT, 24] matrix — built here from the table, so XLA
     hoists the pack out of the render loop — and fetched with a single row
-    gather per call: row gathers are descriptor-priced (~0.8 ms per 131072
-    lanes each on this TPU, PROFILE.md 1b), and the field-by-field form paid
-    ~10 of them per texture sample. Only the 4 bilinear texel fetches remain
-    per-lane data gathers.
+    gather per call instead of ~10 field-by-field gathers per texture
+    sample. Only the 4 bilinear texel fetches remain per-lane data gathers.
     """
     # [NT, 24]: params(8) | uv_scale(2) | uv_offset(2) | val_scale(4) |
     # val_offset(4) | typ,image_id (float-encoded) | img_h,img_w (denormalized)
@@ -242,7 +240,7 @@ def material_albedo(scene, mat_ids, uv, mrow=None):
 
     `mrow` (render.bsdf.MatRow): pre-gathered per-lane material attributes —
     avoids two more row gathers (the bounce body gathers ONE packed row per
-    bounce, PROFILE.md 1b)."""
+    bounce)."""
     mt = scene.materials
     const = mrow.albedo if mrow is not None else mt.albedo[mat_ids]
     if scene.textures.count == 0:

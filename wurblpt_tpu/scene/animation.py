@@ -2,7 +2,7 @@
 
 Reference: ``Animation::at(t)`` + binary keyframe search with lerp+slerp
 (``animation_keyframes.hpp:51-216``) and the per-render-time ``AnimationCache``
-(``animation.hpp:52-125``). On TPU there is no cache: evaluation is a pure
+(``animation.hpp:52-125``). Here there is no cache: evaluation is a pure
 vectorized gather + slerp over the padded keyframe tables, cheap enough to run
 per ray time (motion blur gives every ray its own time anyway).
 """
@@ -14,6 +14,7 @@ from typing import NamedTuple
 import jax.numpy as jnp
 
 from ..core.transform import Transformation, quat_slerp, quat_to_mat3
+from ..core.vecmath import matvec
 from .ir import AnimTable
 
 
@@ -52,7 +53,7 @@ class AnimCtx(NamedTuple):
 
     The reference transforms animated triangle VERTICES at ray time
     (hitable_triangle.hpp ANIMATE path via AnimationCache,
-    animation.hpp:52-125). On TPU we instead transform the RAY into each
+    animation.hpp:52-125). Here we instead transform the RAY into each
     animation's object space once per cast — the hit parameter `t` is
     affine-invariant, so world hit points come from the untransformed ray and
     per-primitive work stays at two gathered mat-vecs.
@@ -68,8 +69,8 @@ class AnimCtx(NamedTuple):
     def ray_to_object(self, o, d):
         """World rays [N,3] -> object-space rays per animation [N,A,3]."""
         oo = o[:, None, :] - self.t_inv
-        o_a = jnp.einsum("naij,naj->nai", self.r_inv, oo)
-        d_a = jnp.einsum("naij,nj->nai", self.r_inv, d)
+        o_a = matvec(self.r_inv, oo)
+        d_a = matvec(self.r_inv, d[:, None, :])
         return o_a, d_a
 
 

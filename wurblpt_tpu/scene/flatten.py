@@ -620,8 +620,9 @@ def flatten_scene(scene, max_image_dim: int = 2048, use_bvh=None,
 
     # --- BVH (auto beyond the brute-force sweet spot) ------------------------
     # Small scenes are faster as one dense primitive tile (no gathers); big
-    # scenes need the threaded SAH tree (accel/build.py). Threshold measured on
-    # TPU v5e, see accel/traverse.py.
+    # scenes need the threaded SAH tree (accel/build.py). The threshold was
+    # set on the previous accelerator; not yet measured on the H100
+    # (ROADMAP S4).
     if use_bvh is None:
         use_bvh = n_prims >= 512
     bvh = None

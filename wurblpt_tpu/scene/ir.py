@@ -1,9 +1,10 @@
 """Scene intermediate representation: structure-of-arrays pytrees.
 
 The reference scene is a pointer graph of virtual ``Hitable``/``Material``/``Texture``
-objects (``libwurblpt/scene.hpp:55-241``). That design cannot run on a TPU. Here the
-scene is *data*: flat SoA jnp arrays bundled in NamedTuple pytrees that are traced
-through jit and shard_map, replicated in HBM on every chip (SURVEY.md section 2.2
+objects (``libwurblpt/scene.hpp:55-241``). That design cannot run as one batched
+device program. Here the scene is *data*: flat SoA jnp arrays bundled in NamedTuple
+pytrees that are traced through jit and shard_map, replicated in every device's
+memory (SURVEY.md section 2.2
 "scene replication"). Virtual dispatch becomes integer type codes + masked
 evaluation; per-object pointers become integer indices.
 
@@ -209,8 +210,8 @@ class BVHArrays(NamedTuple):
     node_i: jnp.ndarray      # [N, 2] int32: (leaf_row | -1 inner, miss_next)
     leaf_prims: jnp.ndarray  # [L, K] int32 global prim ids, padded -1
     # Leaf-PACKED geometry: one contiguous [K*9]-float row per leaf so a leaf
-    # visit costs ONE row gather per lane instead of K per-prim row gathers
-    # (TPU gathers are descriptor-bound, not bandwidth-bound). Triangle slots
+    # visit costs ONE row gather per lane instead of K per-prim row gathers.
+    # Triangle slots
     # hold [v0, v1, v2]; sphere slots hold [center, radius, 0...]; the prim id
     # in leaf_prims tells which. leaf_anim carries per-slot animation ids.
     leaf_geom: jnp.ndarray = None   # [L, K, 9] f32

@@ -2,7 +2,7 @@
 
 The reference stamps every rendered image with CPU time, CPU model, compiler and
 sampling parameters as TGD tags (``libwurblpt/wurblpt.hpp:393-435``) and
-reports per-block progress to stderr (``:370-387``). The TPU analog: a
+reports per-block progress to stderr (``:370-387``). The analog here: a
 `RenderStats` record captured around a render call, written as PNG tEXt
 chunks and/or a JSON sidecar next to the image, and a host-side progress
 callback driven by the progressive pass loop
@@ -23,7 +23,8 @@ import numpy as np
 
 @dataclass
 class RenderStats:
-    """What the reference's TGD tags record (wurblpt.hpp:425-435), TPU-ified."""
+    """What the reference's TGD tags record (wurblpt.hpp:425-435), with the
+    device in place of the CPU model."""
 
     samples_per_pixel: int = 0
     max_path_components: int = 0
@@ -49,19 +50,27 @@ class RenderStats:
 
 
 def capture_env() -> Dict[str, str]:
-    """Device/backend facts for stamping (the CPU-model/compiler analog)."""
-    info = {"host": platform.node(), "jax_version": "", "device": "unknown",
-            "backend": "unknown"}
-    try:
-        import jax
+    """Device/backend facts for stamping (the CPU-model/compiler analog).
 
-        info["jax_version"] = jax.__version__
-        dev = jax.devices()[0]
-        info["device"] = getattr(dev, "device_kind", str(dev))
-        info["backend"] = dev.platform
-    except Exception:
-        pass
-    return info
+    A backend that fails to initialize raises here: a stamp that says
+    "unknown" would hide which device a number came from."""
+    import jax
+
+    dev = jax.devices()[0]
+    return {"host": platform.node(), "jax_version": jax.__version__,
+            "device": dev.device_kind, "backend": dev.platform}
+
+
+def gpu_name_and_power_limit() -> str:
+    """`nvidia-smi`'s "name, power.limit" line for the first card, the tag
+    every GPU measurement carries (a card set below its top power limit runs
+    slower under load). Raises if nvidia-smi is missing or fails."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
 
 
 class timed_render:

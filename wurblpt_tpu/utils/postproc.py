@@ -1,6 +1,6 @@
 """Post-processing on rendered images (``libwurblpt/postproc.hpp``).
 
-All functions take/return [H, W, C] jnp arrays and run fine on TPU or CPU.
+All functions take/return [H, W, C] jnp arrays and run on any JAX backend.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Surround-format conversion tools.
 
-TPU-native equivalents of the reference's three converter executables
+Array equivalents of the reference's three converter executables
 (``tools/wurblpt-360-to-180.cpp``, ``tools/wurblpt-stereo-to-mono.cpp``,
 ``tools/wurblpt-360-to-conventional.cpp``). Images here are numpy/jnp arrays
 [H, W, C] with row 0 at the top; stereo frames are top/bottom packed with the
