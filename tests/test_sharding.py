@@ -140,7 +140,7 @@ def test_local_shard_rows_subset_meshes():
 
 def test_sharded_wavefront_equals_single_device():
     """The production wavefront under an 8-device mesh must equal the
-    single-device wavefront (counter-based RNG, lane-partitioned by GSPMD)."""
+    single-device wavefront (counter-based RNG, row bands under shard_map)."""
     from wurblpt_tpu.parallel.sharding import render_frame_wavefront_sharded
     from wurblpt_tpu.render.integrator import render_frame_wavefront
 
@@ -185,19 +185,89 @@ def test_sharded_wavefront_partitions_the_lanes():
     """The compiled sharded program runs 1/n of the lanes per device: GSPMD
     alone would replicate the wavefront loop and render the whole frame on
     every device."""
-    import re
-
-    from wurblpt_tpu.parallel.sharding import _wavefront_bands
+    from wurblpt_tpu.parallel.sharding import _frame_bands, ray_batch_sizes
+    from wurblpt_tpu.render.integrator import render_frame_wavefront
 
     w, h = 16, 16
     arrays, static, cam = _setup(w, h)
     mesh = make_ray_mesh(jax.devices()[:4])
-    fn = _wavefront_bands(static, CameraConfig(), SensorRGB(), w, h, 2, mesh,
-                          0.0, 0.0, _PARAMS, 131072)
+    fn = _frame_bands(render_frame_wavefront, static, CameraConfig(),
+                      SensorRGB(), w, h, 2, mesh, 0.0, 0.0, _PARAMS,
+                      max_lanes=131072)
     hlo = fn.lower(arrays, cam).compile().as_text()
-    lanes = {int(n) for n in re.findall(r"f32\[(\d+),3\]", hlo)}
+    lanes = ray_batch_sizes(hlo)
     # 16 x 16 pixels x 4 samples = 1024 lanes single-device; 256 per device.
     assert 256 in lanes and 1024 not in lanes, sorted(lanes)
+
+
+@pytest.mark.parametrize("program", ["pass_renderer", "training_step"])
+def test_pass_programs_partition_the_lanes(program):
+    """The pass renderer (motion-blurred frames) and the training step are
+    split by rows, not replicated: each of 4 devices traces a quarter of
+    every pass's rays."""
+    from wurblpt_tpu.inverse import make_train_step
+    from wurblpt_tpu.parallel.sharding import _frame_bands, ray_batch_sizes
+
+    w, h = 16, 16
+    arrays, static, cam = _setup(w, h)
+    mesh = make_ray_mesh(jax.devices()[:4])
+    if program == "pass_renderer":
+        fn = _frame_bands(render_frame, static, CameraConfig(), SensorRGB(),
+                          w, h, 2, mesh, 0.0, 0.0, _PARAMS, samples_per_pass=1)
+        hlo = fn.lower(arrays, cam).compile().as_text()
+    else:
+        params0 = {"albedo": arrays.materials.albedo}
+
+        def apply_params(s, p):
+            return s._replace(materials=s.materials._replace(albedo=p["albedo"]))
+
+        step, opt = make_train_step(
+            arrays, apply_params, jnp.zeros((h, w, 3), jnp.float32), cam=cam,
+            width=w, height=h, samples_sqrt=2, mesh=mesh, static=static,
+            render_params=RenderParams(max_path_components=4,
+                                       differentiable=True))
+        hlo = step.lower(params0, opt.init(params0),
+                         jnp.int32(0)).compile().as_text()
+    lanes = ray_batch_sizes(hlo)
+    # One sample per pass: 16 x 16 = 256 rays single-device, 64 per device.
+    assert 64 in lanes and 256 not in lanes, sorted(lanes)
+
+
+def test_sharded_motion_blur_equals_single_device():
+    """A motion-blurred frame on the mesh goes through the pass renderer's
+    row window (10 rows over 4 devices: the last band is short) and equals
+    the single-device frame."""
+    from wurblpt_tpu.core.transform import Transformation
+    from wurblpt_tpu.parallel.sharding import render_frame_wavefront_sharded
+    from wurblpt_tpu.render.integrator import render_frame_wavefront
+    from wurblpt_tpu.scene.builder import (AnimationKeyframes, LightDiffuse,
+                                           MeshInstance, Scene)
+    from wurblpt_tpu.scene.generator import generate_quad
+
+    sc = Scene()
+    aid = sc.take_animation(AnimationKeyframes(
+        times=[0.0, 1.0],
+        transformations=[Transformation.make(translation=(-0.6, 0.0, 0.0)),
+                         Transformation.make(translation=(0.6, 0.0, 0.0))]))
+    sc.take_mesh_instance(
+        MeshInstance(mesh=generate_quad(0.3, 0.3),
+                     material=LightDiffuse(radiance=(4, 4, 4)), animation=aid),
+        hot_spot=True)
+    scene = sc.build(t0=0.0, t1=1.0)
+    static = SceneStatic.from_scene(scene)
+    w, h = 16, 10
+    cam = make_camera(
+        transformation=Transformation.make(translation=(0.0, 0.0, 2.5)),
+        vfov_deg=50.0, width=w, height=h)
+    params = RenderParams(max_path_components=2)
+    single = np.asarray(render_frame_wavefront(
+        scene, static, cam, CameraConfig(), SensorRGB(), w, h, 2, t0=0.0,
+        t1=1.0, params=params))
+    sharded = render_frame_wavefront_sharded(
+        scene, static, cam, CameraConfig(), SensorRGB(), w, h, 2,
+        mesh=make_ray_mesh(jax.devices()[:4]), t0=0.0, t1=1.0, params=params)
+    assert sharded.shape == single.shape and single.max() > 0.5
+    np.testing.assert_array_equal(np.asarray(sharded), single)
 
 
 def test_row_windows_tile_the_frame():

@@ -115,27 +115,48 @@ def test_watertight_edge_is_hit_by_exactly_consistent_side():
     assert hit_any.all(), f"{(~hit_any).sum()}/{n} exact edge rays missed both"
 
 
-def test_sphere_hit_points_lie_on_the_surface():
+@pytest.mark.parametrize("animated", [False, True], ids=["static", "animated"])
+def test_sphere_hit_points_lie_on_the_surface(animated):
     """Sphere hit points are re-projected onto the surface: far from the
     origin, o + t*d carries t's rounding (~1e-4 here), and a point left
-    inside the sphere lets a grazing scatter ray re-hit it from inside."""
-    import jax.numpy as jnp
-
+    inside the sphere lets a grazing scatter ray re-hit it from inside.
+    Animated spheres are re-projected in object space and mapped to world
+    with the animation's frame at the ray's time."""
+    from wurblpt_tpu.core.transform import Transformation, quat_from_axis_angle
     from wurblpt_tpu.render.intersect import scene_closest_hit
-    from wurblpt_tpu.scene.builder import Lambertian, Scene, SphereObject
+    from wurblpt_tpu.scene.animation import make_anim_ctx
+    from wurblpt_tpu.scene.builder import AnimationKeyframes, SphereObject
 
     center = np.array([3.0, -2.0, -40.0], np.float32)
+    radius = 1.5 if animated else 1.0
     sc = Scene()
-    sc.take_sphere(SphereObject(tuple(center), 1.0, Lambertian(albedo=(0.5,) * 3)))
-    scene = sc.build(use_bvh=False)
+    if animated:
+        # Object-space unit sphere at the origin, posed (rotated, uniformly
+        # scaled, translated) into place by its animation.
+        pose = Transformation.make(
+            translation=tuple(center),
+            rotation=quat_from_axis_angle((1.0, 1.0, 0.0), 0.5),
+            scale=radius)
+        aid = sc.take_animation(AnimationKeyframes(
+            times=[0.0, 1.0], transformations=[pose, pose]))
+        sc.take_sphere(SphereObject((0.0, 0.0, 0.0), 1.0,
+                                    Lambertian(albedo=(0.5,) * 3),
+                                    animation=aid))
+        scene = sc.build(use_bvh=False, t0=0.0, t1=1.0)
+    else:
+        sc.take_sphere(SphereObject(tuple(center), radius,
+                                    Lambertian(albedo=(0.5,) * 3)))
+        scene = sc.build(use_bvh=False)
     rs = np.random.RandomState(0)
     n = 512
     target = center + rs.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
     o = np.zeros((n, 3), np.float32)
     d = target / np.linalg.norm(target, axis=1, keepdims=True)
+    ctx = make_anim_ctx(scene.anims, jnp.full((n,), 0.5)) if animated else None
     hr = scene_closest_hit(scene, jnp.asarray(o), jnp.asarray(d),
-                           jnp.full((n,), 1e-4), jnp.full((n,), 1e30))
+                           jnp.full((n,), 1e-4), jnp.full((n,), 1e30),
+                           anim_ctx=ctx)
     assert bool(np.all(np.asarray(hr.hit)))
     p = np.asarray(hr.position, np.float64)
-    r = np.linalg.norm(p - center.astype(np.float64), axis=1)
+    r = np.linalg.norm(p - center.astype(np.float64), axis=1) / radius
     assert np.abs(r - 1.0).max() < 1e-5, np.abs(r - 1.0).max()

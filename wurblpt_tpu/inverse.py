@@ -66,12 +66,12 @@ def make_train_step(
     over an arbitrary optax-optimizable params pytree.
 
     This one function is the training loop's unit everywhere: `fit` drives it
-    single-device; with `mesh` the framebuffer (and with it the whole
-    differentiable wavefront) is row-sharded over the mesh's first axis while
-    params/scene stay replicated — GSPMD then all-reduces the parameter
-    gradients across ray shards automatically (the psum of SURVEY.md section
-    2.2 "result reduction"), and `parallel.sharding.training_step` +
-    the multi-chip dryrun compile exactly this step.
+    single-device; with `mesh` the differentiable renderer is split by frame
+    rows over the mesh's first axis (`parallel.sharding.row_bands`) while
+    params/scene stay replicated — the parameter gradients are summed across
+    the row bands (the psum of SURVEY.md section 2.2 "result reduction"), and
+    `parallel.sharding.training_step` + the multi-chip dryrun compile exactly
+    this step.
 
     Returns (step_fn, optimizer) — init opt_state with
     ``optimizer.init(params0)``.
@@ -90,31 +90,34 @@ def make_train_step(
     diff_params = dataclasses.replace(render_params, differentiable=True)
     spp = samples_sqrt * samples_sqrt
 
+    def render(s, c, sample_start, row_window=None):
+        from .render.integrator import accumulate_passes
+
+        n_rows = height if row_window is None else row_window[1]
+        acc = accumulate_passes(
+            s, static, c, cam_cfg, sensor, width, height, 8,
+            0.0, 0.0, diff_params, 1,
+            jnp.zeros((width * n_rows, sensor.n_acc)),
+            0, spp, sample_offset=sample_start, row_window=row_window,
+        )
+        return sensor.finish(acc, 1.0 / spp).reshape(n_rows, width, sensor.n_acc)
+
     shardings = None
     if mesh is not None:
         from jax.sharding import NamedSharding, PartitionSpec as P
 
-        axis = mesh.axis_names[0]
+        from .parallel.sharding import row_bands
+
         assert height % mesh.devices.size == 0, (
             f"height {height} not divisible by mesh size {mesh.devices.size}")
-        rep = NamedSharding(mesh, P())
-        shard_img = NamedSharding(mesh, P(axis, None, None))
-        shardings = (rep, shard_img)
+        render = row_bands(render, mesh, height)
+        shardings = (NamedSharding(mesh, P()),
+                     NamedSharding(mesh, P(mesh.axis_names[0], None, None)))
 
     def objective(params, sample_start):
         s = apply_params(scene, params)
         c = apply_cam(cam, params) if apply_cam is not None else cam
-        from .render.integrator import accumulate_passes
-
-        acc = accumulate_passes(
-            s, static, c, cam_cfg, sensor, width, height, 8,
-            0.0, 0.0, diff_params, 1,
-            jnp.zeros((width * height, sensor.n_acc)),
-            0, spp, sample_offset=sample_start,
-        )
-        img = sensor.finish(acc, 1.0 / spp).reshape(height, width, sensor.n_acc)
-        if shardings is not None:
-            img = jax.lax.with_sharding_constraint(img, shardings[1])
+        img = render(s, c, sample_start)
         return loss_fn(img, target), img
 
     def step(params, opt_state, sample_start):

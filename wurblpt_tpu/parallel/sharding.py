@@ -2,9 +2,10 @@
 
 Replaces the reference's MPI master/worker block scheduler (``libwurblpt/
 mpi.hpp:36-289``) with the idiomatic JAX recipe (SURVEY.md section 2.2): one
-global `Mesh` with a "rays" axis, the pixel/sample batch sharded across it, the
-scene pytree replicated in every device's memory, and XLA inserting the collectives
-(gradient psum, framebuffer gather) from sharding annotations — no hand-written
+global `Mesh` with a "rays" axis, the frame's pixel rows split across it
+(`row_bands`, a `shard_map`), the scene pytree replicated in every device's
+memory, and JAX inserting the collectives (the gradient psum from the
+shard_map's transpose, the framebuffer gather on fetch) — no hand-written
 transport. Reproducibility across chip counts is free because the RNG is
 counter-based per (pixel, sample): a pixel's radiance does not depend on which
 chip computed it (unlike the reference's sequential per-pixel PRNG streams,
@@ -30,7 +31,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..render.bsdf import SceneStatic
-from ..render.camera import CameraConfig, CameraParams, SurroundMode
+from ..render.camera import CameraConfig, CameraParams
 from ..render.integrator import RenderParams, render_frame
 
 
@@ -41,6 +42,53 @@ def make_ray_mesh(devices=None, axis: str = "rays") -> Mesh:
     import numpy as np
 
     return Mesh(np.asarray(devices), (axis,))
+
+
+def ray_batch_sizes(hlo_text: str) -> set:
+    """Leading sizes of the [n, 3] f32 arrays in a compiled program's HLO
+    text: its ray batches (positions, directions, throughputs). On a mesh the
+    text is one device's partition, so a partitioned program shows n / n_dev
+    where a replicated one shows n."""
+    import re
+
+    return {int(n) for n in re.findall(r"f32\[(\d+),3\]", hlo_text)}
+
+
+def row_bands(render, mesh: Mesh, height: int):
+    """`render(*args, row_window=...)` split by frame rows over the mesh's
+    first axis: device i renders rows [i * n_rows, (i + 1) * n_rows),
+    n_rows = ceil(height / n_dev), from replicated arguments, and the result
+    is row-sharded with n_dev * n_rows rows (rows past the frame are zero).
+
+    The split is explicit (`shard_map`): GSPMD, left to propagate a sharding
+    from an output constraint, does not partition the wavefront's while-loop
+    lanes and kept a full pass of rays per card in the GPU's training step.
+    Pixel and sample ids stay global, so the bands assemble into the
+    single-device frame. Differentiable: the transpose sums the replicated
+    arguments' cotangents over the devices (the gradient psum)."""
+    axis = mesh.axis_names[0]
+    n_rows = -(-height // mesh.devices.size)
+
+    def band(*args):
+        row0 = jax.lax.axis_index(axis) * n_rows
+        return render(*args, row_window=(row0, n_rows))
+
+    return jax.shard_map(band, mesh=mesh, in_specs=P(), out_specs=P(axis),
+                         check_vma=False)
+
+
+@lru_cache(maxsize=16)
+def _frame_bands(render, static, cam_cfg, sensor, width, height, samples_sqrt,
+                 mesh, t0, t1, params, **kw):
+    """Cached jitted (scene, cam) -> row-sharded frame of `render`
+    (`render_frame` or `render_frame_wavefront`), keyed on the static
+    configuration so repeated frames reuse one compiled program."""
+    def frame(scene_in, cam_in, row_window):
+        return render(scene_in, static, cam_in, cam_cfg, sensor, width, height,
+                      samples_sqrt, t0, t1, params, row_window=row_window, **kw)
+
+    return jax.jit(row_bands(frame, mesh, height),
+                   in_shardings=NamedSharding(mesh, P()))
 
 
 def render_frame_sharded(
@@ -58,49 +106,21 @@ def render_frame_sharded(
     params: RenderParams = RenderParams(),
     samples_per_pass: int = 1,
 ):
-    """Render with pixels sharded over the mesh's "rays" axis.
+    """`render_frame` (the pass renderer) with frame rows split over the
+    mesh's "rays" axis (`row_bands`).
 
     The scene is replicated; the framebuffer is produced row-sharded and
     gathered implicitly on host fetch. Heights not divisible by the mesh size
-    are padded internally (the extra rows render real pixels below the frame
-    and are sliced off) — the analog of the reference's final partial MPI
-    block (mpi.hpp:226-232).
+    leave the last band short (its rows past the frame are sliced off) — the
+    analog of the reference's final partial MPI block (mpi.hpp:226-232).
     """
     if mesh is None:
         mesh = make_ray_mesh()
-    axis = mesh.axis_names[0]
-    n_dev = mesh.devices.size
-    # Pinhole mono ray gen is height-independent (extra rows = pixels below
-    # the frame, bit-identical prefix); surround/stereo map rows through the
-    # frame height so padding would change every ray.
-    can_pad = cam_cfg.surround == SurroundMode.OFF and not cam_cfg.stereo
-    if can_pad:
-        pad_height = -(-height // n_dev) * n_dev
-    else:
-        # Surround/stereo mappings depend on the frame height; padding would
-        # change every ray. Require divisibility there.
-        assert height % n_dev == 0, (
-            f"height {height} not divisible by {n_dev} devices "
-            "(surround/stereo frames cannot be row-padded)"
-        )
-        pad_height = height
-
-    rep = NamedSharding(mesh, P())
-
-    def run(scene_in, cam_in):
-        img = render_frame(
-            scene_in, static, cam_in, cam_cfg, sensor, width, pad_height,
-            samples_sqrt, t0, t1, params, samples_per_pass,
-        )
-        # Ask GSPMD to shard the framebuffer rows over the ray axis; everything
-        # upstream (the per-pixel wavefront) is then row-sharded too.
-        return jax.lax.with_sharding_constraint(
-            img, NamedSharding(mesh, P(axis, None, None))
-        )
-
-    fn = jax.jit(run, in_shardings=(rep, rep), out_shardings=NamedSharding(mesh, P(axis, None, None)))
+    fn = _frame_bands(render_frame, static, cam_cfg, sensor, width, height,
+                      samples_sqrt, mesh, float(t0), float(t1), params,
+                      samples_per_pass=samples_per_pass)
     img = fn(scene, cam)
-    return img[:height] if pad_height != height else img
+    return img[:height] if img.shape[0] != height else img
 
 
 def render_frame_wavefront_sharded(
@@ -118,50 +138,23 @@ def render_frame_wavefront_sharded(
     params: RenderParams = RenderParams(),
     max_lanes: int = 131072,
 ):
-    """The PRODUCTION inference path on a mesh: the persistent-lane wavefront,
-    each device rendering its own band of ceil(height / n_dev) frame rows
-    (scene replicated, framebuffer row-sharded over the "rays" axis).
-
-    The split is explicit (`shard_map` over `render_frame_wavefront`'s
-    `row_window`): GSPMD, left to propagate a sharding from the output
-    constraint, does not partition the wavefront's while-loop lanes and every
-    device would render the whole frame. Pixel and sample ids stay global, so
-    the image equals the single-device wavefront up to the order in which a
-    pixel's sample lanes are summed (verified in tests/test_sharding.py).
-    Motion-blurred frames (t0 != t1) go through `render_frame_sharded`, as
-    the single-device wavefront hands them to the pass renderer.
+    """The PRODUCTION inference path on a mesh: the persistent-lane
+    wavefront, each device rendering its own band of frame rows
+    (`row_bands`; scene replicated, framebuffer row-sharded over the "rays"
+    axis). The image equals the single-device wavefront up to the order in
+    which a pixel's sample lanes are summed (verified in
+    tests/test_sharding.py). Motion-blurred frames go through the pass
+    renderer's row window, as the single-device wavefront hands them over.
     """
-    if static.has_anim and t0 != t1:
-        return render_frame_sharded(
-            scene, static, cam, cam_cfg, sensor, width, height, samples_sqrt,
-            mesh=mesh, t0=t0, t1=t1, params=params)
     if mesh is None:
         mesh = make_ray_mesh()
-    fn = _wavefront_bands(static, cam_cfg, sensor, width, height, samples_sqrt,
-                          mesh, float(t0), float(t1), params, max_lanes)
-    img = fn(scene, cam)
-    return img[:height] if img.shape[0] != height else img
-
-
-@lru_cache(maxsize=16)
-def _wavefront_bands(static, cam_cfg, sensor, width, height, samples_sqrt,
-                     mesh, t0, t1, params, max_lanes):
-    """Cached jitted (scene, cam) -> row-sharded frame, keyed on the static
-    configuration so repeated frames reuse one compiled program."""
     from ..render.integrator import render_frame_wavefront
 
-    axis = mesh.axis_names[0]
-    n_rows = -(-height // mesh.devices.size)
-
-    def band(scene_in, cam_in):
-        row0 = jax.lax.axis_index(axis) * n_rows
-        return render_frame_wavefront(
-            scene_in, static, cam_in, cam_cfg, sensor, width, height,
-            samples_sqrt, t0, t1, params, max_lanes=max_lanes,
-            row_window=(row0, n_rows))
-
-    return jax.jit(jax.shard_map(band, mesh=mesh, in_specs=(P(), P()),
-                                 out_specs=P(axis), check_vma=False))
+    fn = _frame_bands(render_frame_wavefront, static, cam_cfg, sensor, width,
+                      height, samples_sqrt, mesh, float(t0), float(t1), params,
+                      max_lanes=max_lanes)
+    img = fn(scene, cam)
+    return img[:height] if img.shape[0] != height else img
 
 
 def training_step(
@@ -186,10 +179,12 @@ def training_step(
 
     This is `inverse.make_train_step` — the same optax-driven unit
     `inverse.fit` iterates single-device — compiled with the framebuffer (and
-    with it the whole differentiable wavefront) row-sharded over the mesh's
-    ray axis; scene/params replicated; GSPMD all-reduces the parameter
-    gradients across ray shards (the psum of SURVEY.md section 2.2 "result
-    reduction"). The multi-chip dryrun compiles exactly this step.
+    with it the whole differentiable renderer) split by rows over the mesh's
+    ray axis (`row_bands`); scene/params replicated; the parameter gradients
+    are summed across the row bands (the psum of SURVEY.md section 2.2
+    "result reduction"). Each device traces 1/n of the rays
+    (tests/test_sharding.py checks the compiled lane count, `chip_smoke.py
+    --four` on the cards). The multi-chip dryrun compiles exactly this step.
 
     params0/apply_params default to fitting the material color tables
     (albedo + emissive), the most common recovery target; pass any pytree +

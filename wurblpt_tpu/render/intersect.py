@@ -587,16 +587,14 @@ def assemble_hit(scene: SceneArrays, o, d, t, prim, u, v, anim_ctx=None, ms=None
         n_sph = normalize(local)
         uv_sph, tan_sph = _sphere_uv_tangent(n_sph)
         mat_sph = jnp.round(srow[..., 4]).astype(jnp.int32)
-        if anim_ctx is None:
-            # Re-project the hit onto the surface (pbrt's sphere refinement):
-            # o + t*d carries the rounding of t, and a point that lands inside
-            # the sphere by more than min_hit_distance * cos lets a grazing
-            # scatter ray re-hit the sphere from inside and lose its sample
-            # (seen on the GPU in the white furnace).
-            is_sph = (hit & ~is_tri)[..., None]
-            position = jnp.where(is_sph, center + radius[..., None] * n_sph,
-                                 position)
+        # The hit re-projected onto the surface (pbrt's sphere refinement), in
+        # the sphere's own space: o + t*d carries the rounding of t, and a
+        # point that lands inside the sphere by more than min_hit_distance *
+        # cos lets a grazing scatter ray re-hit the sphere from inside and
+        # lose its sample (seen on the GPU in the white furnace).
+        surf_sph = center + radius[..., None] * n_sph
     else:
+        surf_sph = None
         n_sph = jnp.zeros_like(position)
         uv_sph = jnp.zeros(position.shape[:-1] + (2,))
         tan_sph = jnp.zeros_like(position)
@@ -614,10 +612,14 @@ def assemble_hit(scene: SceneArrays, o, d, t, prim, u, v, anim_ctx=None, ms=None
         # (normal matrix), tangents by the forward map (animation.hpp:52-125).
         from ..scene.animation import anim_forward_frames
 
-        m_fwd, m_nrm, _ = anim_forward_frames(scene.anims, aid_win, anim_ctx.time)
+        m_fwd, m_nrm, tf = anim_forward_frames(scene.anims, aid_win, anim_ctx.time)
         normal = normalize(matvec(m_nrm, normal))
         geom_normal = normalize(matvec(m_nrm, geom_normal))
         tangent = normalize(matvec(m_fwd, tangent))
+        if surf_sph is not None:
+            surf_sph = matvec(m_fwd, surf_sph) + tf.translation
+    if surf_sph is not None:
+        position = jnp.where((hit & ~is_tri)[..., None], surf_sph, position)
 
     # Backside: geometric normal faces away from the incoming ray.
     backside = dot(d, geom_normal) > 0.0

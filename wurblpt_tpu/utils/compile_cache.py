@@ -17,8 +17,6 @@ subdirectory.
 from __future__ import annotations
 
 import os
-from typing import Optional
-
 ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 CACHE_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -30,19 +28,15 @@ def cache_dir(name: str = "default") -> str:
     return os.environ.get(ENV_VAR) or os.path.join(CACHE_ROOT, name)
 
 
-def enable_compile_cache(name: str = "default",
-                         min_compile_secs: Optional[float] = None) -> str:
+def enable_compile_cache(name: str = "default") -> str:
     """Point JAX's persistent cache at `cache_dir(name)`; returns the path.
 
     Sets `jax_compilation_cache_dir` only when the environment leaves it
-    unset. `min_compile_secs` overrides JAX's threshold for what is cached."""
+    unset."""
     import jax
 
     path = cache_dir(name)
     if not os.environ.get(ENV_VAR):
         os.makedirs(path, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", path)
-    if min_compile_secs is not None:
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          min_compile_secs)
     return path
